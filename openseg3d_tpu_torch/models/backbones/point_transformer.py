@@ -1,14 +1,17 @@
-"""SWFormer-style window-transformer backbone (eval).
+"""SWFormer-style window-transformer backbone.
 
 Counterpart of ``openseg3d_tpu/models/backbones/point_transformer.py``: a
 submanifold-conv stem, 4 stages of dual-shift window partition + SWFormer
 blocks (channels 48/96/192/384, 8 heads), strided sparse-conv downsamples, an
 UpBlock decoder on inverse convs, and an aux head at the bottleneck. Dropped
-voxels keep their slots with zeroed features.
+voxels keep their slots with zeroed features. Stochastic depth rates rise
+linearly over all encoder layers, ``np.linspace(0, DROP_PATH_RATE,
+sum(depths))`` split by stage (``point_transformer.py:58-67``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -42,11 +45,14 @@ class PointTransformer(nn.Module):
         super().__init__()
         levels = stage_level_specs(spec)
         chans = (in_channels,) + CHANNELS
+        dpr = np.linspace(0, spec.drop_path_rate, sum(spec.depths)).tolist()
+        bounds = np.cumsum((0,) + tuple(spec.depths)).tolist()
         for s in range(4):
             # conv_input, conv_down1..3
             setattr(self, f'ConvModule_{s}', ConvModule(chans[s], chans[s + 1]))
             setattr(self, f'SWFormerBlock_{s}', SWFormerBlock(
-                CHANNELS[s], NHEAD, spec.depths[s], spec.window_shape, levels[s]))
+                CHANNELS[s], NHEAD, spec.depths[s], spec.window_shape, levels[s],
+                drop_path=tuple(dpr[bounds[s]:bounds[s + 1]])))
         self.aux_voxel_classifier = nn.Linear(CHANNELS[3], spec.num_classes, bias=False)
         self.UpBlock_0 = UpBlock(384, 192)
         self.UpBlock_1 = UpBlock(192, 96)
@@ -54,7 +60,7 @@ class PointTransformer(nn.Module):
         self.UpBlock_3 = UpBlock(48, output_channels)
         self.voxel_classifier = nn.Linear(output_channels, spec.num_classes, bias=False)
 
-    def forward(self, voxel_features, plans: UNetPlans, window_parts):
+    def forward(self, voxel_features, plans: UNetPlans, window_parts, rng=None):
         m1, m2, m3, m4 = plans.masks
         rb1, rb2, rb3, rb4 = plans.subm
         d2, d3, d4 = plans.down
@@ -64,7 +70,7 @@ class PointTransformer(nn.Module):
         x, skips = voxel_features, []
         for s in range(4):
             x = getattr(self, f'ConvModule_{s}')(x, rules[s], masks[s])
-            x = getattr(self, f'SWFormerBlock_{s}')(x, window_parts[s])
+            x = getattr(self, f'SWFormerBlock_{s}')(x, window_parts[s], rng)
             skips.append(x)
         x_conv1, x_conv2, x_conv3, x_conv4 = skips
 

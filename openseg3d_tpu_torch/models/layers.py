@@ -5,6 +5,9 @@ names that flax gives their counterparts (``Dense_0``, ``MaskedBatchNorm_0``,
 ...), so that ``weights.load_flax_variables`` maps one parameter tree onto the
 other by name.
 
+Training follows ``nn.Module.training`` (the JAX package's ``train`` flag):
+it switches every MaskedBatchNorm to batch statistics.
+
 dtype rule of the JAX package (``Dense(dtype=x.dtype)``): parameters stay
 float32 and each layer computes in its input's dtype (bfloat16 on the
 production path, ``RUNTIME.COMPUTE_DTYPE``); ``dense`` does the cast.
@@ -28,15 +31,29 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None = None):
     return F.linear(x.to(dt), layer.weight.to(dt), b)
 
 
+def dropout(x: torch.Tensor, rate: float, rng: torch.Generator | None,
+            training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training keep each element with probability
+    1 - rate, scaled by 1 / (1 - rate); identity in eval or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, 0)
+
+
 class LinearBNReLU(nn.Module):
-    """Linear(bias=False) + BN (eps 1e-5) + optional ReLU."""
+    """Linear(bias=False) + BN (eps 1e-5, flax momentum 0.9, i.e. torch's
+    BatchNorm1d default 0.1) + optional ReLU."""
 
     def __init__(self, in_features: int, features: int, act: bool = True,
                  bn_eps: float = 1e-5):
         super().__init__()
         self.act = act
         self.Dense_0 = nn.Linear(in_features, features, bias=False)
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, eps=bn_eps)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, eps=bn_eps, momentum=0.9)
 
     def forward(self, x, mask):
         x = self.MaskedBatchNorm_0(dense(self.Dense_0, x), mask)
@@ -44,12 +61,13 @@ class LinearBNReLU(nn.Module):
 
 
 class PointEncoder(nn.Module):
-    """BN -> (64, 128, 256) LinearBNReLU tower -> Linear(out)."""
+    """BN (flax momentum 0.9) -> (64, 128, 256) LinearBNReLU tower ->
+    Linear(out)."""
 
     def __init__(self, in_features: int, out_features: int = 64,
                  hidden=(64, 128, 256)):
         super().__init__()
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(in_features, eps=1e-5)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(in_features, eps=1e-5, momentum=0.9)
         dims = (in_features,) + tuple(hidden)
         for i in range(len(hidden)):
             setattr(self, f'LinearBNReLU_{i}', LinearBNReLU(dims[i], dims[i + 1]))

@@ -1,0 +1,63 @@
+"""Optimizers and the learning-rate schedule.
+
+Counterpart of ``openseg3d_tpu/models/optim.py``:
+  * ``sgd`` is ``optax.chain(add_decayed_weights(wd), sgd(lr, momentum))``,
+    which is ``torch.optim.SGD(momentum, weight_decay=wd, dampening=0,
+    nesterov=False)``: the decay joins the gradient before the momentum
+    trace, and the first trace is the gradient itself in both;
+  * ``adamw`` is ``optax.adamw(lr, weight_decay=wd)``, which is
+    ``torch.optim.AdamW(betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)``.
+Both decay every parameter, BatchNorm and LayerNorm scales and biases
+included, because the JAX package passes optax no mask.
+
+The schedule is a function of the update count: update i (counted from 0)
+uses ``schedule(i)``, which the train step writes into the optimizer's
+parameter group before it steps (``set_learning_rate``). Only warmup-poly is
+ported; cosine and one-cycle raise until the rest of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def warmup_poly_schedule(base_lr: float, max_iters: int, warmup_iters: int,
+                         warmup_factor: float = 0.001, power: float = 0.9):
+    """lr(i) = base * warmup(i) * (1 - i / max_iters) ** power with a linear
+    warmup from warmup_factor over warmup_iters updates."""
+    def schedule(count: int) -> float:
+        i = min(count, max_iters)
+        alpha = min(i / max(warmup_iters, 1), 1.0)
+        warm = warmup_factor * (1 - alpha) + alpha
+        poly = max(1.0 - i / max_iters, 0.0) ** power
+        return base_lr * warm * poly
+    return schedule
+
+
+def build_schedule(cfg, epochs: int, iters_per_epoch: int):
+    total = max(epochs * iters_per_epoch, 1)
+    name = cfg.TRAIN.LR_SCHEDULER
+    if name == 'warmup_poly_lr':
+        return warmup_poly_schedule(cfg.TRAIN.LR, total, warmup_iters=iters_per_epoch)
+    if name in ('cosine_annealing', 'one_cycle'):
+        raise NotImplementedError(f'schedule {name!r} is not ported yet')
+    raise NotImplementedError(name)
+
+
+def build_optimizer(cfg, params) -> torch.optim.Optimizer:
+    """The optimizer over `params` (one group: every parameter decays). Its
+    learning rate is set per update by the train step."""
+    params = list(params)
+    lr, wd = float(cfg.TRAIN.LR), float(cfg.TRAIN.WEIGHT_DECAY)
+    if cfg.TRAIN.OPTIMIZER == 'adamw':
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=wd)
+    if cfg.TRAIN.OPTIMIZER == 'sgd':
+        return torch.optim.SGD(params, lr=lr, momentum=float(cfg.TRAIN.MOMENTUM),
+                               dampening=0.0, weight_decay=wd, nesterov=False)
+    raise NotImplementedError(cfg.TRAIN.OPTIMIZER)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group['lr'] = lr

@@ -15,7 +15,7 @@ from torch import nn
 
 from ...config import ConfigDict, grid_size
 from ...ops.scatter import voxel_to_point
-from ..layers import FlattenSELayer, LinearBNReLU, PointEncoder, dense, vfe_max
+from ..layers import FlattenSELayer, LinearBNReLU, PointEncoder, dense, dropout, vfe_max
 from ..backbones.sparse_unet import stage_capacities
 
 
@@ -85,10 +85,12 @@ class ModelSpec:
 
 
 class SegmentorHead(nn.Module):
-    """Fusion encoder + SE residual + point classifier."""
+    """Fusion encoder + SE residual + dropout (0.3, training only) + point
+    classifier."""
 
     def __init__(self, in_channels: int, num_classes: int, fusion_channel: int = 64):
         super().__init__()
+        self.drop = 0.3       # nn.Dropout(0.3) of the JAX head (common.py:102)
         self.LinearBNReLU_0 = LinearBNReLU(in_channels, 256)
         self.LinearBNReLU_1 = LinearBNReLU(256, 128)
         self.LinearBNReLU_2 = LinearBNReLU(128, fusion_channel)
@@ -96,13 +98,14 @@ class SegmentorHead(nn.Module):
         self.LinearBNReLU_3 = LinearBNReLU(fusion_channel, 64)
         self.Dense_0 = nn.Linear(64, num_classes, bias=False)
 
-    def forward(self, point_fusion_features, cur_mask):
+    def forward(self, point_fusion_features, cur_mask, rng=None):
         x = self.LinearBNReLU_0(point_fusion_features, cur_mask)
         x = self.LinearBNReLU_1(x, cur_mask)
         x = self.LinearBNReLU_2(x, cur_mask)
         x = x + self.FlattenSELayer_0(x, cur_mask)
         x = self.LinearBNReLU_3(x, cur_mask)
-        # classifier logits in float32 (loss/metric numerics); dropout is off in eval
+        x = dropout(x, self.drop, rng, self.training)
+        # classifier logits in float32 (loss/metric numerics)
         point_out = dense(self.Dense_0, x, torch.float32)
         return torch.where(cur_mask[..., None], point_out, 0)
 
@@ -131,7 +134,7 @@ class PointBranch(nn.Module):
 
 
 def fuse_and_classify(batch, point_per_features, voxel_features, cur_mask,
-                      head: SegmentorHead):
+                      head: SegmentorHead, rng=None):
     """Devoxelize + head."""
     pvf = voxel_to_point(voxel_features, batch['point_voxel_ids'])
-    return head(torch.cat([point_per_features, pvf], dim=-1), cur_mask)
+    return head(torch.cat([point_per_features, pvf], dim=-1), cur_mask, rng)

@@ -1,10 +1,14 @@
 """Segformer segmentor: point MLP || VFE -> PointTransformer -> fusion head.
 
-Counterpart of ``openseg3d_tpu/models/segmentors/segformer.py`` (eval).
+Counterpart of ``openseg3d_tpu/models/segmentors/segformer.py``. Training
+follows ``nn.Module.training``; its dropout and stochastic depth draw from
+the ``torch.Generator`` passed as ``rng`` (the JAX package's ``dropout`` rng
+stream), which training requires.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ...ops.sparse_conv import SparseTensor
@@ -26,16 +30,19 @@ class Segformer(nn.Module):
         self.SegmentorHead_0 = SegmentorHead(
             point_feature_channel + voxel_feature_channel, spec.num_classes)
 
-    def forward(self, batch):
+    def forward(self, batch, rng: torch.Generator | None = None):
+        if self.training and rng is None:
+            raise ValueError('a training forward needs a torch.Generator (rng) for '
+                             'its dropout and stochastic depth')
         spec = self.spec
         point_per, voxel_feats, cur_mask = self.PointBranch_0(batch)
         st = SparseTensor(features=voxel_feats, coords=batch['voxel_coords'],
                           spatial_shape=spec.spatial_shape)
         plans = build_unet_plans(st, spec.capacities)
         window_parts, _ = build_window_plans(plans, spec)
-        out = self.PointTransformer_0(voxel_feats, plans, window_parts)
+        out = self.PointTransformer_0(voxel_feats, plans, window_parts, rng)
         point_out = fuse_and_classify(batch, point_per, out['voxel_features'],
-                                      cur_mask, self.SegmentorHead_0)
+                                      cur_mask, self.SegmentorHead_0, rng)
         return {
             'point_out': point_out,
             'voxel_out': out['voxel_out'],

@@ -1,9 +1,13 @@
-"""Sparse conv building blocks (forward, eval).
+"""Sparse conv building blocks.
 
 Counterpart of ``openseg3d_tpu/models/sparse_modules.py``. Every module takes
 precomputed rulebooks: structure is built once per stage and reused by every
-conv at that stage. The squeeze-excite and spatial-attention options of
-SparseBasicBlock belong to SPNet and wait for it.
+conv at that stage. Training follows ``nn.Module.training`` (batch statistics
+in every MaskedBatchNorm). The JAX package rematerialises the submanifold
+gather-GEMM in the backward (``jax.checkpoint``, a memory choice); here
+autograd keeps the gathered neighbour rows. The squeeze-excite and
+spatial-attention options of SparseBasicBlock belong to SPNet and wait for
+it.
 """
 
 from __future__ import annotations
@@ -15,8 +19,9 @@ from torch import nn
 from ..ops.sparse_conv import Rulebook, apply_subm
 from .norm import MaskedBatchNorm
 
-# backbone norm: BatchNorm1d(eps=1e-3) (``sparse_modules.py:19-21``)
-BN_EPS = 1e-3
+# backbone norm: BatchNorm1d(eps=1e-3, momentum=0.01), flax momentum 0.99
+# (``sparse_modules.py:19-21``)
+BN = dict(eps=1e-3, momentum=0.99)
 
 
 class SparseConv(nn.Module):
@@ -41,7 +46,7 @@ class ConvModule(nn.Module):
     def __init__(self, in_features: int, features: int):
         super().__init__()
         self.SparseConv_0 = SparseConv(in_features, features)
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, eps=BN_EPS)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, **BN)
 
     def forward(self, x, rulebook: Rulebook, out_mask):
         return F.relu(self.MaskedBatchNorm_0(self.SparseConv_0(x, rulebook, out_mask),
@@ -54,9 +59,9 @@ class SparseBasicBlock(nn.Module):
     def __init__(self, planes: int):
         super().__init__()
         self.SparseConv_0 = SparseConv(planes, planes, use_bias=True)
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(planes, eps=BN_EPS)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(planes, **BN)
         self.SparseConv_1 = SparseConv(planes, planes, use_bias=True)
-        self.MaskedBatchNorm_1 = MaskedBatchNorm(planes, eps=BN_EPS)
+        self.MaskedBatchNorm_1 = MaskedBatchNorm(planes, **BN)
 
     def forward(self, x, rulebook: Rulebook, mask):
         out = F.relu(self.MaskedBatchNorm_0(self.SparseConv_0(x, rulebook, mask), mask))

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with nvcc for
 Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first use and
 loaded with ctypes. The hash covers the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded. A failed build raises
-with nvcc's output. Nothing is compiled or loaded when the package is
-imported: CPU-only hosts never come here.
+with nvcc's output. ``build_all`` compiles several sources at once, one nvcc
+process each. Nothing is compiled or loaded when the package is imported:
+CPU-only hosts never come here.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+KERNELS = ('window_attention', 'window_attention_train', 'nearest_point')
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -41,24 +43,41 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
+def build_all(names=KERNELS) -> dict[str, tuple[Path, float, str]]:
+    """Compile csrc/<name>.cu for every name whose library is not built yet,
+    all nvcc processes started together. Returns {name: (library path, build
+    seconds, compiler output)}; raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    results, running = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            results[name] = (out, 0.0, '')
+            continue
+        tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, cmd, tmp, out)
+    failed = []
+    for name, (proc, cmd, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n{log}')
+            continue
+        os.replace(tmp, out)    # atomic: a concurrent loader never sees half a file
+        results[name] = (out, seconds, log)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return results
+
+
 def build(name: str) -> tuple[Path, float, str]:
     """Compile csrc/<name>.cu unless its library is built already.
     Returns (library path, build seconds, compiler output)."""
-    out = library_path(name)
-    if out.exists():
-        return out, 0.0, ''
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n{log}')
-    os.replace(tmp, out)        # atomic: a concurrent loader never sees half a file
-    return out, seconds, log
+    return build_all((name,))[name]
 
 
 def load(name: str) -> ctypes.CDLL:

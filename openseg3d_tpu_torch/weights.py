@@ -14,6 +14,11 @@ name:
     ``in_proj_bias``, ``tau``, BN ``scale``/``bias``/``mean``/``var``).
 Any leaf left unused, any tensor left unset, and any shape mismatch raises.
 
+``to_flax_variables`` is the inverse: the model's parameters (or their
+gradients) and BatchNorm buffers as flax-named trees of numpy arrays, Linear
+kernels transposed back and ``ModuleList`` layers re-stacked on axis 0, so
+that they compare leaf by leaf with the JAX package's trees.
+
 ``init_weights`` fills a model with seeded random weights from a
 ``torch.Generator`` instead, for runs that need full-width weights but no
 trained ones.
@@ -87,6 +92,61 @@ def load_flax_variables(model: nn.Module, params: dict, batch_stats: dict) -> No
                 raise ValueError(f'{"/".join(path)}: flax {value.shape} vs '
                                  f'torch {tuple(tensor.shape)}')
             tensor.copy_(torch.from_numpy(value))
+
+
+def _export(module: nn.Module, prefix: tuple, grads: bool) -> dict:
+    """{flax leaf path: (numpy array, 'params' or 'batch_stats')}."""
+    if isinstance(module, nn.ModuleList):
+        per_layer = [_export(child, prefix, grads) for child in module]
+        return {path: (np.stack([layer[path][0] for layer in per_layer]), kind)
+                for path, (_, kind) in per_layer[0].items()}
+
+    def value(t):
+        if not grads:
+            return t.detach().cpu().numpy()
+        if t.grad is None:
+            return np.zeros(tuple(t.shape), np.float32)
+        return t.grad.detach().cpu().numpy()
+
+    out = {}
+    if isinstance(module, nn.Linear):
+        out[prefix + ('kernel',)] = (value(module.weight).T, 'params')
+        if module.bias is not None:
+            out[prefix + ('bias',)] = (value(module.bias), 'params')
+        return out
+    if isinstance(module, nn.LayerNorm):
+        out[prefix + ('scale',)] = (value(module.weight), 'params')
+        out[prefix + ('bias',)] = (value(module.bias), 'params')
+        return out
+    for name, t in module.named_parameters(recurse=False):
+        out[prefix + (name,)] = (value(t), 'params')
+    if not grads:
+        for name, t in module.named_buffers(recurse=False):
+            out[prefix + (name,)] = (t.detach().cpu().numpy(), 'batch_stats')
+    for name, child in module.named_children():
+        out.update(_export(child, prefix + (name,), grads))
+    return out
+
+
+def _unflatten(leaves: dict) -> dict:
+    tree: dict = {}
+    for path, arr in leaves.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return tree
+
+
+def to_flax_variables(model: nn.Module, grads: bool = False):
+    """(params, batch_stats): the inverse of ``load_flax_variables``, nested
+    dicts of float32 numpy arrays under the flax names. With grads=True,
+    params holds each parameter's ``.grad`` (zeros where it has none) and
+    batch_stats is empty."""
+    leaves = _export(model, (), grads)
+    params = {p: a for p, (a, kind) in leaves.items() if kind == 'params'}
+    stats = {p: a for p, (a, kind) in leaves.items() if kind == 'batch_stats'}
+    return _unflatten(params), _unflatten(stats)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

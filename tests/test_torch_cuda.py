@@ -1,22 +1,32 @@
-"""The CUDA window-attention kernel against its plain PyTorch version, on the
-same GPU. Every test here needs an NVIDIA GPU with nvcc and skips without
-one; on the GPU machine run them with
+"""The CUDA kernels against their plain PyTorch versions, on the same GPU:
+window attention (eval, B1), the train attention forward and backward (B2)
+and the 1-NN search (B3). Every test here needs an NVIDIA GPU with nvcc and
+skips without one; on the GPU machine run them with
 
     python3 -m pytest tests/test_torch_cuda.py
 
 This file imports no part of the JAX package (flax is not installed there).
 
-Tolerance: float32, atol/rtol 1e-5 (the same math in another summation
-order). bfloat16: both versions compute in float32 from the same bf16 inputs
-and round the output once to bf16, so they differ by at most one bf16 ulp,
-2**-7 of the value.
+Tolerances. Eval and train forward, float32: atol/rtol 1e-5 (the same math
+in another summation order). bfloat16: both versions compute in float32 from
+the same bf16 inputs and round the output once to bf16, so they differ by at
+most one bf16 ulp, 2**-7 of the value. Train gradients: float32 within 1e-4
+of the largest gradient magnitude (sums of T products); bfloat16 within 4
+bf16 ulps of it (the kernel also rounds its residual O to bf16). The dropout
+mask is the same hash in both, so these hold at drop rate 0.1 as at 0. 1-NN:
+indices equal.
 """
 
 import pytest
 import torch
 
 from openseg3d_tpu_torch.ops.attention import (window_attention_packed,
-                                               window_attention_packed_plain)
+                                               window_attention_packed_plain,
+                                               window_attention_packed_train,
+                                               window_attention_packed_train_plain,
+                                               window_attention_train_backward,
+                                               window_attention_train_forward)
+from openseg3d_tpu_torch.ops.knn import nearest_point, nearest_point_plain
 
 NHEAD = 8
 
@@ -89,3 +99,98 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         window_attention_packed(packed, bias, NHEAD, nw[:1].repeat(3))
     with pytest.raises(ValueError, match='bias'):
         window_attention_packed(packed, bias.half(), NHEAD, nw)
+
+
+def train_attention_check(packed, bias, seed, nw, nhead, rate, gen):
+    """B2 forward and backward against the plain version's forward and
+    autograd gradient for a random cotangent that is zero past nw. Returns
+    (max |out err|, max |grad err| / max |plain grad|, plain out, kernel out)."""
+    n, t, c3 = packed.shape
+    out, stats = window_attention_train_forward(packed, bias, seed, nw, nhead, rate)
+    x = packed.detach().clone().requires_grad_(True)
+    want = window_attention_packed_train_plain(x, bias, seed, nw, nhead, rate)
+    wps = n // nw.shape[0]
+    live = (torch.arange(n, device=packed.device) % wps) < nw.repeat_interleave(wps)
+    gout = torch.randn(n, t, c3 // 3, generator=gen, device=packed.device)
+    gout = torch.where(live[:, None, None], gout, 0).to(packed.dtype)
+    want.backward(gout)
+    dpacked = window_attention_train_backward(packed, bias, seed, nw, out, stats, gout,
+                                              nhead, rate)
+    torch.cuda.synchronize()
+    g_err = float((dpacked.float() - x.grad.float()).abs().max())
+    g_ref = float(x.grad.float().abs().max())
+    return (out.float() - want.detach().float()).abs(), g_err / max(g_ref, 1e-30), \
+        want.detach().float(), out, dpacked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('t,c', [(16, 48), (32, 96), (64, 384), (100, 96), (800, 48),
+                                 (800, 384)])
+def test_train_kernels_match_plain(cuda, t, c, dtype, rate):
+    packed, bias, nw = _packed_case(cuda, 8 if t >= 800 else 48, t, c,
+                                    [2, 3] if t >= 800 else [7, 19], dtype)
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    before = (window_attention_train_forward.launches,
+              window_attention_train_backward.launches)
+    err, g_rel, want, out, dpacked = train_attention_check(packed, bias, seed, nw, NHEAD,
+                                                           rate, gen)
+    assert (window_attention_train_forward.launches,
+            window_attention_train_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and dpacked.dtype == dtype and dpacked.shape == packed.shape
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 + 1e-5 * float(want.abs().max()), float(err.max())
+        assert g_rel <= 1e-4, g_rel
+    else:
+        assert bool((err <= 2.0 ** -7 * want.abs() + 1e-6).all()), float(err.max())
+        assert g_rel <= 4 * 2.0 ** -7, g_rel
+    n, wps = packed.shape[0], packed.shape[0] // 2
+    for s, count in enumerate(nw.tolist()):            # windows past nw: zeros
+        assert not out[s * wps + count:(s + 1) * wps].any()
+        assert not dpacked[s * wps + count:(s + 1) * wps].any()
+    assert bool(torch.isfinite(dpacked.float()).all())  # incl. the fully padded window
+
+
+@pytest.mark.cuda
+def test_train_autograd_function_uses_both_kernels(cuda):
+    packed, bias, nw = _packed_case(cuda, 16, 32, 96, [5, 8], torch.float32)
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda)
+    x = packed.clone().requires_grad_(True)
+    before = (window_attention_train_forward.launches,
+              window_attention_train_backward.launches)
+    out = window_attention_packed_train(x, bias, seed, nw, NHEAD, 0.1)
+    out.square().sum().backward()
+    assert (window_attention_train_forward.launches,
+            window_attention_train_backward.launches) == (before[0] + 1, before[1] + 1)
+    y = packed.clone().requires_grad_(True)
+    window_attention_packed_train_plain(y, bias, seed, nw, NHEAD, 0.1).square().sum().backward()
+    torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4 * float(y.grad.abs().max()))
+
+
+@pytest.mark.cuda
+def test_nearest_point_matches_plain_with_ties_and_no_valid_point(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, q, p = 2, 1000, 5000
+    # a coarse grid: many equal distances (a query at a cell centre is
+    # equidistant from the 8 grid points around it)
+    points = torch.randint(0, 12, (b, p, 3), generator=gen, device=cuda).float() * 0.2
+    queries = (torch.randint(0, 6, (b, q, 3), generator=gen, device=cuda).float() * 2 + 1) * 0.2
+    valid = torch.rand(b, p, generator=gen, device=cuda) > 0.3
+    valid[1] = False                                   # sample 1: no valid point
+    before = nearest_point.launches
+    got = nearest_point(queries, points, valid)
+    torch.cuda.synchronize()
+    assert nearest_point.launches == before + 1
+    want = nearest_point_plain(queries, points, valid)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got[1] == -1).all() and (got[0] >= 0).all()
+    assert bool(valid[0][got[0].long()].all())
+    # duplicated points: the lowest index wins, never the copy
+    dup = torch.cat([points[:, :10], points[:, :10]], dim=1).contiguous()
+    ones = torch.ones(b, 20, dtype=torch.bool, device=cuda)
+    idx = nearest_point(dup[:, :10].contiguous(), dup, ones)
+    assert bool((idx <= torch.arange(10, device=cuda)).all())
+    torch.testing.assert_close(idx, nearest_point_plain(dup[:, :10].contiguous(), dup, ones),
+                               rtol=0, atol=0)

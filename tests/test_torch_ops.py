@@ -237,3 +237,86 @@ def test_positional_embedding_and_permute_rows_equal_jax():
     np.testing.assert_array_equal(
         win.permute_rows(t(x), t(idx)).numpy(),
         _np(jwin.permute_rows(jnp.asarray(x), jnp.asarray(idx), jnp.asarray(idx))))
+
+
+# ---------------------------------------------------------------------------
+# gradients: autograd through the port's ops against the JAX package's
+# custom VJPs (the subm, strided and inverse convs, permute_rows) and
+# jax.grad (segment_max with tied maxima). Float32, 1e-5 as the forwards.
+# ---------------------------------------------------------------------------
+
+def _conv_grads(jrule, rule, feats, w, mask, cot):
+    """d sum(conv(x, w) * cot) / d (x, w) on both sides."""
+    def jloss(x, ww):
+        return jnp.sum(jsc.apply_subm(x, jrule, ww, jnp.asarray(mask)) * cot)
+
+    jgx, jgw = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(feats), jnp.asarray(w))
+    x, ww = t(feats).requires_grad_(True), t(w).requires_grad_(True)
+    (sc.apply_subm(x, rule, ww, t(mask)) * t(cot)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), _np(jgx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ww.grad.numpy(), _np(jgw), rtol=1e-5, atol=1e-5)
+
+
+def test_sparse_conv_gradients_equal_jax_custom_vjps():
+    rng = np.random.RandomState(8)
+    shape, cin, cout = (8, 8, 8), 5, 4
+    coords, feats = _make_sparse(rng, 2, 40, 30, shape, cin)
+    mask = coords[..., 0] >= 0
+    jst = jsc.SparseTensor(features=jnp.asarray(feats), coords=jnp.asarray(coords),
+                           spatial_shape=shape)
+    st = sc.SparseTensor(t(feats), t(coords), shape)
+
+    # submanifold: the planar rulebook's custom VJP
+    w = rng.randn(27, cin, cout).astype(np.float32)
+    cot = rng.randn(2, 40, cout).astype(np.float32)
+    _conv_grads(jax.jit(jsc.build_planar_k3_direct)(jst), sc.build_subm_rulebook(st),
+                feats, w, mask, cot)
+
+    # strided and inverse: the downsample plan's rules
+    jplan = jax.jit(jsc.build_downsample, static_argnums=(1,))(jst, 24)
+    plan = sc.build_downsample(st, 24)
+    cmask = (plan.out_coords[..., 0] >= 0).numpy()
+    _conv_grads(jplan.rule, plan.rule, feats, w, cmask,
+                rng.randn(2, 24, cout).astype(np.float32))
+    coarse = rng.randn(2, 24, cout).astype(np.float32) * cmask[..., None]
+    _conv_grads(jplan.inv_rule, plan.inv_rule, coarse,
+                rng.randn(27, cout, cin).astype(np.float32), mask,
+                rng.randn(2, 40, cin).astype(np.float32))
+
+
+def test_permute_rows_gradient_equals_jax_custom_vjp():
+    rng = np.random.RandomState(9)
+    b, n, m, c = 2, 12, 16, 3
+    x = rng.randn(b, n, c).astype(np.float32)
+    fwd = np.full((b, m), -1, np.int32)
+    bwd = np.full((b, n), -1, np.int32)
+    for bi in range(b):                      # a partial permutation and its inverse
+        slots = rng.choice(m, size=9, replace=False)
+        rows = rng.choice(n, size=9, replace=False)
+        fwd[bi, slots] = rows
+        bwd[bi, rows] = slots
+    cot = rng.randn(b, m, c).astype(np.float32)
+    jg = jax.grad(lambda xx: jnp.sum(jwin.permute_rows(xx, jnp.asarray(fwd),
+                                                       jnp.asarray(bwd)) * cot))(jnp.asarray(x))
+    xt = t(x).requires_grad_(True)
+    (win.permute_rows(xt, t(fwd)) * t(cot)).sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), _np(jg))
+
+
+def test_segment_max_gradient_with_ties_equals_jax():
+    """Max-VFE: rows tied for a segment's maximum share its gradient as
+    jax.grad of segment_max shares it."""
+    rng = np.random.RandomState(10)
+    n, s, c = 60, 8, 4
+    data = rng.randint(-3, 4, (n, c)).astype(np.float32)    # small ints: many ties
+    ids = rng.randint(-1, s + 1, n).astype(np.int32)
+    cot = rng.randn(s, c).astype(np.float32)
+    jg = jax.grad(lambda d: jnp.sum(jscatter.segment_max(d, jnp.asarray(ids), s) * cot))(
+        jnp.asarray(data))
+    x = t(data).requires_grad_(True)
+    (scatter.segment_max(x, t(ids), s) * t(cot)).sum().backward()
+    # the case has maxima shared by several rows
+    seg_max = np.stack([data[ids == k].max(0) for k in range(s)])
+    ties = [(data[ids == k] == seg_max[k]).sum(0) for k in range(s)]
+    assert max(int(x.max()) for x in ties) >= 2
+    np.testing.assert_allclose(x.grad.numpy(), _np(jg), rtol=1e-6, atol=1e-6)

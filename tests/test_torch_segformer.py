@@ -30,7 +30,7 @@ from openseg3d_tpu.engine import make_eval_step as jax_make_eval_step
 from openseg3d_tpu_torch.data.batch import to_device
 from openseg3d_tpu_torch.engine import build_segmentor, make_eval_step
 from openseg3d_tpu_torch.ops.attention import window_attention_packed
-from openseg3d_tpu_torch.weights import load_flax_variables
+from openseg3d_tpu_torch.weights import load_flax_variables, to_flax_variables
 
 from helpers import synthetic_batch, tiny_cfg
 
@@ -134,6 +134,36 @@ def test_bridge_rejects_unused_and_missing_leaves(jax_model):
     load_flax_variables(model, params, stats)               # the full tree fits
 
 
+def test_to_flax_variables_inverts_the_bridge(jax_model):
+    """load_flax_variables then to_flax_variables gives the trees back
+    exactly: every leaf, Linear kernels transposed back, the scanned layers
+    re-stacked on axis 0. With grads=True it returns the gradients under the
+    same names (zeros before any backward)."""
+    cfg, _, _, params, stats = jax_model
+    model, _ = build_segmentor(cfg)
+    load_flax_variables(model, params, stats)
+    got_params, got_stats = to_flax_variables(model)
+
+    def leaves(tree, prefix=()):
+        for k, v in tree.items():
+            if hasattr(v, 'items'):
+                yield from leaves(v, prefix + (k,))
+            else:
+                yield prefix + (k,), np.asarray(v)
+
+    for mine, ref in ((got_params, params), (got_stats, stats)):
+        a, b = dict(leaves(mine)), dict(leaves(ref))
+        assert set(a) == set(b)
+        for path in b:
+            assert a[path].dtype == np.float32
+            np.testing.assert_array_equal(a[path], b[path], err_msg='/'.join(path))
+    grads, no_stats = to_flax_variables(model, grads=True)
+    assert no_stats == {}
+    g = dict(leaves(grads))
+    assert set(g) == set(dict(leaves(params)))
+    assert not any(v.any() for v in g.values())
+
+
 _NO_JAX_SCRIPT = r'''
 import sys
 for name in ('jax', 'jaxlib', 'flax', 'optax', 'openseg3d_tpu'):
@@ -142,7 +172,9 @@ import numpy as np, torch
 from openseg3d_tpu_torch.config import cfg_from_file
 from openseg3d_tpu_torch.core.voxelizer import VoxelGenerator, majority_voxel_labels
 from openseg3d_tpu_torch.data.batch import collate_padded, pad_sample, to_device
-from openseg3d_tpu_torch.engine import build_segmentor, make_eval_step, make_forward
+from openseg3d_tpu_torch.engine import (TrainState, build_segmentor, make_eval_step,
+                                        make_forward, make_train_step)
+from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
 from openseg3d_tpu_torch.weights import init_weights
 cfg = cfg_from_file(None, overrides=%r)
 rng = np.random.RandomState(0)
@@ -159,6 +191,9 @@ model.eval()
 logits = make_forward(model)(batch)
 hist = make_eval_step(cfg, spec, model)(batch)['hist']
 assert torch.isfinite(logits).all() and int(hist.sum()) == 500
+state = TrainState(model, build_optimizer(cfg, model.parameters()), build_schedule(cfg, 1, 1))
+state, metrics = make_train_step(cfg, spec)(state, batch, seed=0)
+assert metrics['grads_finite'] and torch.isfinite(metrics['loss']) and state.updates == 1
 assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'openseg3d_tpu')
                for m, v in sys.modules.items() if v is not None)
 print('ok')
@@ -174,7 +209,8 @@ def _no_jax_script():
 def test_port_runs_without_jax():
     """The port's runtime path imports no JAX, flax or optax and nothing of
     the JAX package: with them blocked, a subprocess imports the port,
-    builds the model and runs a forward."""
+    builds the model, runs a forward and an eval step, and takes one train
+    step."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', _no_jax_script()], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
