@@ -1,7 +1,8 @@
 """Configuration: the JAX package's schema and defaults, without its import.
 
-A copy of ``openseg3d_tpu/config.py`` (``ConfigDict``, ``default_config``,
-``cfg_from_file``, ``grid_size``; not its pickling or copying helpers), so
+A copy of ``openseg3d_tpu/config.py`` (``ConfigDict`` with its pickling,
+``default_config``, ``cfg_from_file``, ``grid_size``; not its copying
+helpers), so
 that the port's runtime path imports nothing of the JAX package. The
 defaults are the same values; the reasons for each capacity and ladder are
 documented at the original.
@@ -19,8 +20,20 @@ from typing import Any
 import numpy as np
 
 
+def _rebuild_config(items: dict, frozen: bool) -> 'ConfigDict':
+    c = ConfigDict(items)
+    return c.freeze() if frozen else c
+
+
 class ConfigDict(dict):
-    """A dict with attribute access, immutable once ``freeze()`` is called."""
+    """A dict with attribute access, immutable once ``freeze()`` is called.
+
+    Picklable (``__reduce__``): default dict-subclass pickling restores the
+    items through ``__setitem__`` before ``_frozen`` exists, which raises,
+    and configs cross to the spawned data-loader workers."""
+
+    def __reduce__(self):
+        return (_rebuild_config, (dict(self), object.__getattribute__(self, '_frozen')))
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

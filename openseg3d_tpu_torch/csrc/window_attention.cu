@@ -1,37 +1,49 @@
-// Packed window attention for Hopper (sm_90a): the eval attention core of
-// every SWFormer encoder layer.
+// Window attention for Hopper (sm_90a): the eval attention core of every
+// SWFormer encoder layer (packed q|k|v), and the public unpacked op.
 //
-// Replaces the TPU kernel openseg3d_tpu/ops/attention.py:
-// fused_window_attention_packed -> _kernel_packed. Same semantics: for each
-// window n and head h of packed q|k|v rows [N, T, 3C],
+// One kernel body serves two TPU kernels of openseg3d_tpu/ops/attention.py:
+//   * fused_window_attention_packed -> _kernel_packed (pallas_call at :317),
+//     through window_attention_packed below: q, k and v are column blocks
+//     0, C and 2C of one packed [N, T, 3C] array (row stride 3C), and
+//     windows whose rank within their sample is >= nw[sample] are padding by
+//     construction of the window partition and are written as zeros without
+//     being computed;
+//   * fused_window_attention -> _kernel (:181-220, pallas_call at :256),
+//     through window_attention_unpacked below: q, k and v are three [N, T, C]
+//     arrays (row stride C) and every window is computed (no nw).
+// Same semantics as both: for each window n and head h,
 //   out[n, :, h] = softmax(q_h k_h^T + bias[n]) v_h,
-// computed in float32. q arrives L2-normalised per head and scaled by
-// 1/max(tau, 0.01), k normalised; bias is 0 for real tokens and -1e9 for
-// padding, so a fully padded window (all-zero rows) gives zero output.
-// Windows whose rank within their sample is >= nw[sample] are padding by
-// construction of the window partition and are written as zeros without
-// being computed.
+// computed in float32 from float32 or bfloat16 inputs, the output rounded
+// once to the input dtype. bias is 0 for real tokens and -1e9 for padding.
+// A fully padded window has every logit at -1e9 (float32 spacing there is 64,
+// so the q.k terms vanish): a uniform softmax over the window's own T keys,
+// the mean of its own v rows, as the einsum oracle reference_window_attention
+// gives (zero in the model, whose padded rows are zero). The TPU kernel's
+// grouped path differs there: its block-diagonal -1e9 spreads the softmax over
+// all G windows of its group.
 //
 // Design. The TPU kernel masks lanes per head and pays nhead times the MXU
 // work, because sub-128-lane slicing is costly there. Here each block takes
-// its own (window, head group) slice straight from the packed row: q at
-// columns [h*hd, (h+1)*hd), k at C + h*hd, v at 2C + h*hd. One thread owns
-// one query row of one head: its q row and its output accumulator live in
-// registers; the block streams the window's k and v rows for its heads
-// through shared memory in tiles of kKeyTile keys and runs an online
-// softmax (running max and sum), so T = 800 needs no [T, T] buffer and no
-// special case. Small windows pack several heads into one block (T * heads
-// <= 128 rows) so that blocks stay full.
+// its own (window, head group) slice straight from the rows: q at columns
+// [h*hd, (h+1)*hd) of the q rows, k and v likewise. One thread owns one query
+// row of one head: its q row and its output accumulator live in registers;
+// the block streams the window's k and v rows for its heads through shared
+// memory in tiles of kKeyTile keys and runs an online softmax (running max and
+// sum), so T = 800 needs no [T, T] buffer and no special case. Small windows
+// pack several heads into one block (T * heads <= 128 rows) so that blocks
+// stay full.
 //
-// What bounds it on this card: head_dim is 6..48, below the K of 16 that
+// What bounds it on this card: the work is 4*N*T^2*C flops (q.k and p.v),
+// and it reads q, k and v once (3*N*T*C elements) and writes out once
+// (N*T*C). In bf16, bytes / 3.35 TB/s exceeds flops / 989 TFLOP/s up to
+// T ~ 590, so every main-path level but T = 800 is bound by memory. head_dim is 6..48, below the K of 16 that
 // mma/wgmma need and often not a multiple of 8, so this kernel uses float32
-// FMAs, not tensor cores. Each query row does about 4*T*hd FLOPs while q, k,
-// v and out are streamed once; at these widths the kernel is bound by
-// memory and latency, not arithmetic. Tiling with wgmma, packing several
-// heads into one MMA, and vectorised 16-byte loads are later work.
+// FMAs, not tensor cores, and is bound by FMA throughput and latency well above
+// either bound. Tiling with wgmma, packing several heads into one MMA, and
+// vectorised 16-byte loads are later work.
 //
 // Interface: plain C, loaded with ctypes. The launch goes on the caller's
-// stream; the function returns cudaGetLastError() (0 = launched).
+// stream; each function returns cudaGetLastError() (0 = launched).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,14 +65,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 
 // grid: x = window, y = head group, z = query-row chunk.
 // Thread i of a block serves head h0 + i / rows and query row r0 + i % rows.
+// q, k and v point at column 0 of their rows, `stride` elements apart; nw may
+// be null (every window live).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-window_attention_packed_kernel(const T* __restrict__ packed,
-                               const float* __restrict__ bias,
-                               const int* __restrict__ nw,
-                               T* __restrict__ out,
-                               int t, int c, int heads_per_block,
-                               int rows_per_block, int windows_per_sample) {
+window_attention_kernel(const T* __restrict__ q_base,
+                        const T* __restrict__ k_base,
+                        const T* __restrict__ v_base,
+                        int stride,
+                        const float* __restrict__ bias,
+                        const int* __restrict__ nw,
+                        T* __restrict__ out,
+                        int t, int c, int heads_per_block,
+                        int rows_per_block, int windows_per_sample) {
   extern __shared__ float smem[];
   const int n = blockIdx.x;
   const int h0 = blockIdx.y * heads_per_block;
@@ -69,13 +86,12 @@ window_attention_packed_kernel(const T* __restrict__ packed,
   const int row = blockIdx.z * rows_per_block + tid % rows_per_block;
   const bool active = hl < heads_per_block && row < t;
   const int col0 = (h0 + hl) * HD;                          // this thread's head columns
-  const size_t c3 = 3 * static_cast<size_t>(c);
-  const T* win = packed + static_cast<size_t>(n) * t * c3;
+  const size_t win = static_cast<size_t>(n) * t * stride;   // the window's first row
   T* out_row = out + (static_cast<size_t>(n) * t + row) * c + col0;
 
   // padding window (rank >= true window count): zeros, nothing to compute.
   // The whole block takes this branch, so returning before the barriers is safe.
-  if (n % windows_per_sample >= nw[n / windows_per_sample]) {
+  if (nw != nullptr && n % windows_per_sample >= nw[n / windows_per_sample]) {
     if (active) {
 #pragma unroll
       for (int d = 0; d < HD; ++d) out_row[d] = from_float<T>(0.f);
@@ -89,7 +105,7 @@ window_attention_packed_kernel(const T* __restrict__ packed,
   float* bs = vs + kKeyTile * cols;                         // [kKeyTile]
 
   float q[HD], acc[HD];
-  const T* q_row = win + static_cast<size_t>(active ? row : 0) * c3 + col0;
+  const T* q_row = q_base + win + static_cast<size_t>(active ? row : 0) * stride + col0;
 #pragma unroll
   for (int d = 0; d < HD; ++d) {
     q[d] = active ? to_float(q_row[d]) : 0.f;
@@ -103,9 +119,9 @@ window_attention_packed_kernel(const T* __restrict__ packed,
     __syncthreads();     // the previous tile has been consumed
     for (int i = tid; i < nk * cols; i += kThreads) {
       const int j = i / cols, col = i % cols;
-      const T* r = win + static_cast<size_t>(k0 + j) * c3 + h0 * HD + col;
-      ks[j * cols + col] = to_float(r[c]);
-      vs[j * cols + col] = to_float(r[2 * c]);
+      const size_t off = win + static_cast<size_t>(k0 + j) * stride + h0 * HD + col;
+      ks[j * cols + col] = to_float(k_base[off]);
+      vs[j * cols + col] = to_float(v_base[off]);
     }
     for (int j = tid; j < nk; j += kThreads) bs[j] = bias[static_cast<size_t>(n) * t + k0 + j];
     __syncthreads();
@@ -152,7 +168,8 @@ window_attention_packed_kernel(const T* __restrict__ packed,
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* packed, const float* bias, const int* nw, void* out,
+cudaError_t launch(const void* q, const void* k, const void* v, int stride,
+                   const float* bias, const int* nw, void* out,
                    int n, int t, int c, int nhead, int windows_per_sample,
                    cudaStream_t stream) {
   // rows of one head per block, and heads per block for small windows
@@ -164,7 +181,7 @@ cudaError_t launch(const void* packed, const float* bias, const int* nw, void* o
     }
   }
   const size_t smem = (2 * static_cast<size_t>(kKeyTile) * heads * HD + kKeyTile) * sizeof(float);
-  auto kernel = window_attention_packed_kernel<T, HD>;
+  auto kernel = window_attention_kernel<T, HD>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
@@ -172,47 +189,66 @@ cudaError_t launch(const void* packed, const float* bias, const int* nw, void* o
   }
   dim3 grid(n, nhead / heads, (t + rows - 1) / rows);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(packed), bias, nw, static_cast<T*>(out),
-      t, c, heads, rows, windows_per_sample);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), stride,
+      bias, nw, static_cast<T*>(out), t, c, heads, rows, windows_per_sample);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_head_dim(const void* packed, const float* bias, const int* nw,
-                              void* out, int n, int t, int c, int nhead,
-                              int windows_per_sample, cudaStream_t stream) {
+cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, int stride,
+                              const float* bias, const int* nw, void* out, int n, int t,
+                              int c, int nhead, int windows_per_sample, cudaStream_t stream) {
   switch (c / nhead) {
-    case 6:  return launch<T, 6>(packed, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
-    case 12: return launch<T, 12>(packed, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
-    case 24: return launch<T, 24>(packed, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
-    case 48: return launch<T, 48>(packed, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
+    case 6:  return launch<T, 6>(q, k, v, stride, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
+    case 12: return launch<T, 12>(q, k, v, stride, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
+    case 24: return launch<T, 24>(q, k, v, stride, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
+    case 48: return launch<T, 48>(q, k, v, stride, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// q, k, v rows `stride` elements apart; dtype 0 = float32, 1 = bfloat16
+cudaError_t dispatch(const void* q, const void* k, const void* v, int stride,
+                     const void* bias, const void* nw, void* out, int n, int t, int c,
+                     int nhead, int windows_per_sample, int dtype, void* stream) {
+  if (n <= 0 || t <= 0 || nhead <= 0 || c % nhead != 0 || windows_per_sample <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const int* w = static_cast<const int*>(nw);
+  if (dtype == 0)
+    return dispatch_head_dim<float>(q, k, v, stride, b, w, out, n, t, c, nhead,
+                                    windows_per_sample, s);
+  if (dtype == 1)
+    return dispatch_head_dim<__nv_bfloat16>(q, k, v, stride, b, w, out, n, t, c, nhead,
+                                            windows_per_sample, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// packed [n, t, 3c] (dtype 0 = float32, 1 = bfloat16), bias [n, t] float32,
-// nw [n / windows_per_sample] int32, out [n, t, c] of packed's dtype.
+// packed [n, t, 3c] = q|k|v (dtype 0 = float32, 1 = bfloat16), bias [n, t]
+// float32, nw [n / windows_per_sample] int32, out [n, t, c] of packed's dtype.
 // The caller checks shapes; head_dim c / nhead must be 6, 12, 24 or 48.
 int window_attention_packed(const void* packed, const void* bias, const void* nw,
                             void* out, int n, int t, int c, int nhead,
                             int windows_per_sample, int dtype, void* stream) {
-  if (n <= 0 || t <= 0 || nhead <= 0 || c % nhead != 0 || windows_per_sample <= 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  const int* w = static_cast<const int*>(nw);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_head_dim<float>(packed, b, w, out, n, t, c, nhead, windows_per_sample, s);
-  else if (dtype == 1)
-    err = dispatch_head_dim<__nv_bfloat16>(packed, b, w, out, n, t, c, nhead, windows_per_sample, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  const size_t item = dtype == 1 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const char* p = static_cast<const char*>(packed);
+  return static_cast<int>(dispatch(p, p + c * item, p + 2 * c * item, 3 * c, bias, nw, out,
+                                   n, t, c, nhead, windows_per_sample, dtype, stream));
+}
+
+// q, k, v [n, t, c] of one dtype (0 = float32, 1 = bfloat16), bias [n, t]
+// float32, out [n, t, c] of q's dtype; every window is computed.
+// The caller checks shapes; head_dim c / nhead must be 6, 12, 24 or 48.
+int window_attention_unpacked(const void* q, const void* k, const void* v, const void* bias,
+                              void* out, int n, int t, int c, int nhead, int dtype,
+                              void* stream) {
+  return static_cast<int>(dispatch(q, k, v, c, bias, nullptr, out, n, t, c, nhead, n, dtype,
+                                   stream));
 }
 
 const char* window_attention_error_string(int code) {

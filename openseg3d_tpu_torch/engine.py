@@ -38,17 +38,18 @@ from .ops.knn import nearest_label_transfer
 from .utils.pointops import get_voxel_centers
 
 
-def build_segmentor(cfg):
-    """(model, spec) from a config. The model's parameters are placeholders
-    until ``weights.load_flax_variables`` or ``weights.init_weights`` fills
-    them."""
+def build_segmentor(cfg, device='cuda'):
+    """(model, spec) from a config, the model on `device` (the GPU unless the
+    caller asks for the CPU; with no GPU, ``device='cuda'`` raises as torch
+    does for a CUDA tensor). Its parameters are placeholders until
+    ``weights.load_flax_variables`` or ``weights.init_weights`` fills them."""
     spec = ModelSpec.from_config(cfg)
     name = cfg.MODEL.SEGMENTOR
     if name == 'segformer':
         from .models.segmentors.segformer import Segformer
-        return Segformer(spec), spec
+        return Segformer(spec).to(device), spec
     if name == 'spnet':
-        raise NotImplementedError('SPNet is not ported yet')
+        raise NotImplementedError('SPNet is not ported yet (ROADMAP A11)')
     raise NotImplementedError(name)
 
 

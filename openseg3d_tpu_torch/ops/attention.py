@@ -1,6 +1,7 @@
-"""Packed window attention: the attention core of every SWFormer layer.
+"""Window attention: the attention core of every SWFormer layer, and the
+public unpacked op.
 
-Counterpart of ``openseg3d_tpu/ops/attention.py``. Two public functions:
+Counterpart of ``openseg3d_tpu/ops/attention.py``. Three public functions:
 
 * ``window_attention_packed`` (eval). For a CUDA tensor it launches the
   hand-written kernel ``csrc/window_attention.cu`` (which replaces the TPU
@@ -8,6 +9,10 @@ Counterpart of ``openseg3d_tpu/ops/attention.py``. Two public functions:
   tensor it runs ``window_attention_packed_plain``, the einsum with the
   semantics of the JAX package's non-TPU path (``models/swformer.py:167-180``,
   ``reference_window_attention``).
+* ``fused_window_attention`` (the unpacked op: q, k and v as three arrays).
+  For a CUDA tensor it launches the same kernel body through its own entry
+  point (replacing ``fused_window_attention`` -> ``_kernel``); for a CPU
+  tensor it runs ``fused_window_attention_plain``. No model calls it.
 * ``window_attention_packed_train`` (training: attention dropout on the
   softmax weights, differentiable). For a CUDA tensor it is an autograd
   Function whose forward and backward launch the kernels of
@@ -112,19 +117,26 @@ def _live_windows(n: int, nw: torch.Tensor, device) -> torch.Tensor:
     return (rank % wps) < nw.to(device).repeat_interleave(wps)
 
 
-def _attention_plain(packed, bias, nhead, nw, keep=None, inv_keep=1.0):
-    n, t, c3 = packed.shape
-    c = c3 // 3
+def _attention_core(q, k, v, bias, nhead, keep=None, inv_keep=1.0):
+    """softmax(q_h k_h^T + bias) v_h per window and head, in float32.
+    q, k, v [N, T, C]; bias [N, T]; keep bool [N, H, T, T] or None."""
+    n, t, c = q.shape
     hd = c // nhead
-    x = packed.float().reshape(n, t, 3, nhead, hd)
-    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]                    # [N, T, H, hd]
+    q, k, v = (x.float().reshape(n, t, nhead, hd) for x in (q, k, v))
     logits = torch.einsum('nthd,nshd->nhts', q, k) + bias.float()[:, None, None, :]
     attn = torch.softmax(logits, dim=-1)
     if keep is not None:
         attn = attn * (keep.float() * inv_keep)
-    out = torch.einsum('nhts,nshd->nthd', attn, v).reshape(n, t, c)
+    return torch.einsum('nhts,nshd->nthd', attn, v).reshape(n, t, c)
+
+
+def _attention_plain(packed, bias, nhead, nw, keep=None, inv_keep=1.0):
+    c = packed.shape[2] // 3
+    out = _attention_core(packed[..., :c], packed[..., c:2 * c], packed[..., 2 * c:],
+                          bias, nhead, keep, inv_keep)
     if nw is not None:
-        out = torch.where(_live_windows(n, nw, packed.device)[:, None, None], out, 0)
+        out = torch.where(_live_windows(packed.shape[0], nw, packed.device)[:, None, None],
+                          out, 0)
     return out.to(packed.dtype)
 
 
@@ -135,6 +147,15 @@ def window_attention_packed_plain(packed: torch.Tensor, bias: torch.Tensor,
     sample is >= nw[sample] give zeros. Computes in float32 and returns
     [N, T, C] in packed's dtype."""
     return _attention_plain(packed, bias, nhead, nw)
+
+
+def fused_window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 bias: torch.Tensor, nhead: int) -> torch.Tensor:
+    """Plain PyTorch version of the unpacked op: q, k, v [N, T, C], bias
+    [N, T] (0 or -1e9). Computes in float32 and returns [N, T, C] in q's
+    dtype. Every window is computed; a fully padded window gives the mean of
+    its own v rows, as ``reference_window_attention`` does."""
+    return _attention_core(q, k, v, bias, nhead).to(q.dtype)
 
 
 def window_attention_packed_train_plain(packed: torch.Tensor, bias: torch.Tensor,
@@ -212,6 +233,54 @@ def _launch_cuda(packed, bias, nhead, nw):
                 n, t, c3 // 3, nhead, n // nw.shape[0], _dtype_code(packed), stream)
     _raise_on_error(lib, rc, 'window_attention_packed', 'window_attention_error_string')
     window_attention_packed.launches += 1
+    return out
+
+
+def _check_unpacked_args(q, k, v, bias, nhead):
+    """The JAX op's preconditions (``ops/attention.py:230-233``) and the
+    kernel's head widths; raised for every device."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f'q, k and v must be [N, T, C] of one shape, got '
+                         f'{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}')
+    n, t, c = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f'q, k and v must be all float32 or all bfloat16, got '
+                        f'{q.dtype}, {k.dtype}, {v.dtype}')
+    if c % nhead or c // nhead not in KERNEL_HEAD_DIMS:
+        raise ValueError(f'C={c} with nhead={nhead}: head_dim must be one of '
+                         f'{KERNEL_HEAD_DIMS}')
+    g = attention_group(t, c, q.element_size())
+    if n % g:
+        raise ValueError(f'N={n} must be a multiple of attention_group({t}, {c}) = {g}')
+    if t % 16:
+        raise ValueError(f'window max_tokens must be a multiple of 16, got {t}')
+    if tuple(bias.shape) != (n, t):
+        raise ValueError(f'bias must be [{n}, {t}], got {tuple(bias.shape)}')
+
+
+def _launch_unpacked(q, k, v, bias, nhead):
+    if bias.dtype != torch.float32:
+        raise ValueError(f'bias must be float32 on the GPU, got {bias.dtype}')
+    for name, x in (('q', q), ('k', k), ('v', v), ('bias', bias)):
+        if x.device != q.device:
+            raise ValueError(f'{name} is on {x.device}, q on {q.device}')
+        if not x.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    lib = _build.load('window_attention')
+    fn = lib.window_attention_unpacked
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n, t, c = q.shape
+    out = torch.empty_like(q)
+    if n == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                n, t, c, nhead, _dtype_code(q), stream)
+    _raise_on_error(lib, rc, 'fused_window_attention', 'window_attention_error_string')
+    fused_window_attention.launches += 1
     return out
 
 
@@ -313,6 +382,25 @@ def window_attention_packed(packed: torch.Tensor, bias: torch.Tensor,
     raise NotImplementedError(f'no window attention for device {packed.device}')
 
 
+def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, nhead: int) -> torch.Tensor:
+    """Window attention on unpacked q, k, v [N, T, C] (q cosine-normalised
+    and tau-scaled, k normalised), bias [N, T] additive (0 valid, -1e9
+    padded) -> [N, T, C] in q's dtype. N must be a multiple of
+    ``attention_group(T, C, itemsize)`` and T of 16, as for the JAX op;
+    head_dim must be one of ``KERNEL_HEAD_DIMS``.
+
+    On a CUDA tensor: the CUDA kernel (float32 math); its launches are
+    counted in ``fused_window_attention.launches``. On a CPU tensor:
+    ``fused_window_attention_plain``."""
+    _check_unpacked_args(q, k, v, bias, nhead)
+    if q.is_cuda:
+        return _launch_unpacked(q, k, v, bias, nhead)
+    if q.device.type == 'cpu':
+        return fused_window_attention_plain(q, k, v, bias, nhead)
+    raise NotImplementedError(f'no window attention for device {q.device}')
+
+
 def window_attention_packed_train(packed: torch.Tensor, bias: torch.Tensor,
                                   seed: torch.Tensor, nw: torch.Tensor, nhead: int,
                                   drop_rate: float) -> torch.Tensor:
@@ -331,5 +419,6 @@ def window_attention_packed_train(packed: torch.Tensor, bias: torch.Tensor,
 
 
 window_attention_packed.launches = 0
+fused_window_attention.launches = 0
 window_attention_train_forward.launches = 0
 window_attention_train_backward.launches = 0

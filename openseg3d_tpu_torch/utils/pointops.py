@@ -1,13 +1,22 @@
 """Point-cloud coordinate utilities.
 
-Counterpart of ``openseg3d_tpu/utils/pointops.py:16-22`` (the part the train
-step uses). ``query_and_group`` and ``interpolation`` are off the main path
-and not ported yet.
+Counterpart of ``openseg3d_tpu/utils/pointops.py:9-22``: ``cart2polar``
+(numpy, for the datasets' cylinder layout) and ``get_voxel_centers`` (the
+train step's aux labels). ``query_and_group`` and ``interpolation`` are off
+the main path and not ported yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def cart2polar(points: np.ndarray) -> np.ndarray:
+    """Cartesian xyz -> (rho, phi, z); numpy, host side."""
+    rho = np.sqrt(points[:, 0] ** 2 + points[:, 1] ** 2)
+    phi = np.arctan2(points[:, 1], points[:, 0])
+    return np.stack((rho, phi, points[:, 2]), axis=1)
 
 
 def get_voxel_centers(voxel_coords: torch.Tensor, downsample_scale: float,

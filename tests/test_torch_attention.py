@@ -4,7 +4,10 @@ runs them) and its einsum oracle, and the public functions' device dispatch.
 The CUDA kernels against the plain versions are in tests/test_torch_cuda.py.
 
 Tolerances: eval forward float32 on both sides with the same math in another
-summation order, atol/rtol 1e-5. Train path at drop rate 0, as
+summation order, atol/rtol 1e-5. The unpacked op (B4) at the JAX test's own
+tolerances (tests/test_attention.py): float32 2e-5, bfloat16 3e-2 (the Pallas
+kernel rounds the softmax weights to bf16 before attn @ v; the port keeps
+them in float32, as the oracle does). Train path at drop rate 0, as
 tests/test_attention.py holds the Pallas train kernel to the oracle: forward
 2e-5, packed gradient 2e-4 (the gradient sums T products of float32
 softmax terms whose logits reach ~100). At a drop rate above 0 the TPU's
@@ -23,11 +26,13 @@ import torch
 from openseg3d_tpu.ops.attention import attention_group as jax_attention_group
 from openseg3d_tpu.ops.attention import (_train_group, fused_window_attention_packed,
                                          reference_window_attention)
+from openseg3d_tpu.ops.attention import fused_window_attention as jax_fused_window_attention
 from openseg3d_tpu.ops.attention import \
     window_attention_packed_train as jax_window_attention_packed_train
 
 from openseg3d_tpu_torch.ops.attention import (attention_group, dropout_keep_mask,
-                                               dropout_threshold, mix32,
+                                               dropout_threshold, fused_window_attention,
+                                               fused_window_attention_plain, mix32,
                                                window_attention_packed,
                                                window_attention_packed_plain,
                                                window_attention_packed_train,
@@ -108,6 +113,103 @@ def test_attention_group_equals_jax():
         for c in (0, 48, 96, 192, 384):
             for itemsize in (2, 4):
                 assert attention_group(t, c, itemsize) == jax_attention_group(t, c, itemsize)
+
+
+# ---------------------------------------------------------------------------
+# the unpacked op (B4): plain version against the Pallas kernel and the oracle
+# ---------------------------------------------------------------------------
+
+def _unpacked_case(rng, n, t, c, frac_pad):
+    """tests/test_attention.py's inputs: gaussian q, k, v and a random key
+    padding with at least one valid key per window."""
+    q, k, v = (rng.randn(n, t, c).astype(np.float32) for _ in range(3))
+    valid = rng.rand(n, t) > frac_pad
+    valid[:, 0] = True
+    return q, k, v, np.where(valid, 0.0, -1e9).astype(np.float32)
+
+
+def _b4(q, k, v, bias):
+    return fused_window_attention(*(torch.from_numpy(x) for x in (q, k, v, bias)), NHEAD)
+
+
+@pytest.mark.parametrize('t,c', [(16, 48), (64, 48), (256, 96)])
+def test_unpacked_plain_matches_pallas_kernel_and_oracle(t, c):
+    rng = np.random.RandomState(t + c)
+    q, k, v, bias = _unpacked_case(rng, 2 * attention_group(t, c, 4), t, c, 0.4)
+    mine = _b4(q, k, v, bias).numpy()
+    args = [jnp.asarray(x) for x in (q, k, v, bias)]
+    pallas = np.asarray(jax_fused_window_attention(*args, nhead=NHEAD, interpret=True))
+    oracle = np.asarray(reference_window_attention(*args, nhead=NHEAD))
+    np.testing.assert_allclose(mine, pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(mine, oracle, rtol=2e-5, atol=2e-5)
+
+
+def test_unpacked_bfloat16():
+    rng = np.random.RandomState(2)
+    t, c = 32, 96
+    q, k, v, bias = _unpacked_case(rng, attention_group(t, c, 2), t, c, 0.3)
+    bf = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
+    mine = fused_window_attention(*bf, torch.from_numpy(bias), NHEAD)
+    assert mine.dtype == torch.bfloat16
+    args = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in bf]
+    pallas = jax_fused_window_attention(*args, jnp.asarray(bias), nhead=NHEAD, interpret=True)
+    oracle = reference_window_attention(*args, jnp.asarray(bias), nhead=NHEAD)
+    for ref in (pallas, oracle):
+        np.testing.assert_allclose(mine.float().numpy(), np.asarray(ref, np.float32),
+                                   rtol=3e-2, atol=3e-2)
+
+
+def test_unpacked_block_diagonality():
+    """A window's output does not depend on the other windows (of its kernel
+    group on the TPU)."""
+    rng = np.random.RandomState(3)
+    t, c = 16, 48
+    q, k, v, bias = _unpacked_case(rng, attention_group(t, c, 4), t, c, 0.0)
+    base = _b4(q, k, v, bias).numpy()
+    v2 = v.copy()
+    v2[1] += 100.0
+    out2 = _b4(q, k, v2, bias).numpy()
+    np.testing.assert_array_equal(out2[0], base[0])
+    np.testing.assert_array_equal(out2[2:], base[2:])
+    assert np.abs(out2[1] - base[1]).max() > 1.0
+
+
+def test_unpacked_fully_padded_window_equals_oracle():
+    """Every key of window 0 at -1e9: a uniform softmax over its own T keys,
+    the mean of its own v rows, as the oracle gives. The Pallas kernel's
+    grouped path spreads that softmax over its whole group (the result
+    depends on the group size), so it is held only on the other windows."""
+    rng = np.random.RandomState(1)
+    t, c = 16, 48
+    q, k, v, bias = _unpacked_case(rng, attention_group(t, c, 4), t, c, 0.0)
+    bias[0] = -1e9
+    mine = _b4(q, k, v, bias).numpy()
+    args = [jnp.asarray(x) for x in (q, k, v, bias)]
+    oracle = np.asarray(reference_window_attention(*args, nhead=NHEAD))
+    pallas = np.asarray(jax_fused_window_attention(*args, nhead=NHEAD, interpret=True))
+    assert np.isfinite(mine).all()
+    np.testing.assert_allclose(mine, oracle, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(mine[0], np.broadcast_to(v[0].mean(0), (t, c)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(mine[1:], pallas[1:], rtol=2e-5, atol=2e-5)
+
+
+def test_unpacked_cpu_dispatch_is_plain_and_not_counted_and_checks_shapes():
+    rng = np.random.RandomState(4)
+    t, c = 16, 48
+    n = attention_group(t, c, 4)
+    q, k, v, bias = (torch.from_numpy(x) for x in _unpacked_case(rng, n, t, c, 0.3))
+    before = fused_window_attention.launches
+    out = fused_window_attention(q, k, v, bias, NHEAD)
+    assert fused_window_attention.launches == before
+    torch.testing.assert_close(out, fused_window_attention_plain(q, k, v, bias, NHEAD),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match='multiple of attention_group'):
+        fused_window_attention(q[:-1], k[:-1], v[:-1], bias[:-1], NHEAD)
+    with pytest.raises(ValueError, match='multiple of 16'):
+        fused_window_attention(q[:, :8], k[:, :8], v[:, :8], bias[:, :8], NHEAD)
+    with pytest.raises(ValueError, match='head_dim'):
+        fused_window_attention(q[..., :40], k[..., :40], v[..., :40], bias, NHEAD)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the same GPU:
-window attention (eval, B1), the train attention forward and backward (B2)
+window attention (eval, B1), the unpacked window attention (B4), the train
+attention forward and backward (B2)
 and the 1-NN search (B3). Every test here needs an NVIDIA GPU with nvcc and
 skips without one; on the GPU machine run them with
 
@@ -20,7 +21,9 @@ indices equal.
 import pytest
 import torch
 
-from openseg3d_tpu_torch.ops.attention import (window_attention_packed,
+from openseg3d_tpu_torch.ops.attention import (attention_group, fused_window_attention,
+                                               fused_window_attention_plain,
+                                               window_attention_packed,
                                                window_attention_packed_plain,
                                                window_attention_packed_train,
                                                window_attention_packed_train_plain,
@@ -99,6 +102,30 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         window_attention_packed(packed, bias, NHEAD, nw[:1].repeat(3))
     with pytest.raises(ValueError, match='bias'):
         window_attention_packed(packed, bias.half(), NHEAD, nw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('t,c', [(16, 48), (32, 96), (64, 384), (800, 48), (800, 384)])
+def test_unpacked_kernel_matches_plain(cuda, t, c, dtype):
+    """B4: every window computed; window 1 fully padded gives the mean of
+    its own v rows, as the plain version (and the JAX oracle) do."""
+    n = 2 * attention_group(t, c, torch.tensor([], dtype=dtype).element_size())
+    packed, bias, _ = _packed_case(cuda, n, t, c, [n // 2, n // 2], torch.float32)
+    q, k, v = (x.contiguous().to(dtype) for x in packed.split(c, dim=-1))
+    v[1] = torch.randn(t, c, device=cuda).to(dtype)       # padded rows need not be zero
+    before = fused_window_attention.launches
+    got = fused_window_attention(q, k, v, bias, NHEAD)
+    torch.cuda.synchronize()
+    assert fused_window_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, t, c)
+    got = got.float()
+    want = fused_window_attention_plain(q, k, v, bias, NHEAD).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6).all())
+    torch.testing.assert_close(got[1], v[1].float().mean(0).expand(t, c), rtol=1e-2, atol=1e-2)
 
 
 def train_attention_check(packed, bias, seed, nw, nhead, rate, gen):

@@ -76,7 +76,7 @@ def jax_model():
 
 
 def _port(cfg, params, stats):
-    model, spec = build_segmentor(cfg)
+    model, spec = build_segmentor(cfg, device='cpu')
     load_flax_variables(model, params, stats)
     return model.eval(), spec
 
@@ -121,7 +121,7 @@ def test_eval_step_histogram_matches_jax(jax_model):
 
 def test_bridge_rejects_unused_and_missing_leaves(jax_model):
     cfg, _, _, params, stats = jax_model
-    model, _ = build_segmentor(cfg)
+    model, _ = build_segmentor(cfg, device='cpu')
     extra = dict(params, Extra_0={'kernel': np.zeros((2, 2), np.float32)})
     with pytest.raises(ValueError, match='unused'):
         load_flax_variables(model, extra, stats)
@@ -140,7 +140,7 @@ def test_to_flax_variables_inverts_the_bridge(jax_model):
     re-stacked on axis 0. With grads=True it returns the gradients under the
     same names (zeros before any backward)."""
     cfg, _, _, params, stats = jax_model
-    model, _ = build_segmentor(cfg)
+    model, _ = build_segmentor(cfg, device='cpu')
     load_flax_variables(model, params, stats)
     got_params, got_stats = to_flax_variables(model)
 
@@ -176,6 +176,9 @@ from openseg3d_tpu_torch.engine import (TrainState, build_segmentor, make_eval_s
                                         make_forward, make_train_step)
 from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
 from openseg3d_tpu_torch.weights import init_weights
+from openseg3d_tpu_torch.tools import eval as eval_tool, train as train_tool
+from openseg3d_tpu_torch.data import loader, synthetic, test_time_aug, waymo_dataset
+from openseg3d_tpu_torch.utils import checkpoint
 cfg = cfg_from_file(None, overrides=%r)
 rng = np.random.RandomState(0)
 pts = np.concatenate([rng.uniform(-3, 3, (500, 3)), rng.randn(500, 3)], 1).astype(np.float32)
@@ -185,7 +188,7 @@ labels = rng.randint(0, 22, 500)
 s = dict(points=pts, voxel_coords=coords, point_voxel_ids=ids, point_labels=labels,
          voxel_labels=majority_voxel_labels(ids, labels, coords.shape[0]))
 batch = to_device(collate_padded([pad_sample(s, 1024, 512)]), 'cpu')
-model, spec = build_segmentor(cfg)
+model, spec = build_segmentor(cfg, device='cpu')
 init_weights(model, torch.Generator().manual_seed(0))
 model.eval()
 logits = make_forward(model)(batch)
@@ -208,9 +211,9 @@ def _no_jax_script():
 
 def test_port_runs_without_jax():
     """The port's runtime path imports no JAX, flax or optax and nothing of
-    the JAX package: with them blocked, a subprocess imports the port,
-    builds the model, runs a forward and an eval step, and takes one train
-    step."""
+    the JAX package: with them blocked, a subprocess imports the port, its
+    data modules and both command-line tools, builds the model, runs a
+    forward and an eval step, and takes one train step."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', _no_jax_script()], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

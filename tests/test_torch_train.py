@@ -76,7 +76,7 @@ def _no_dropout(model):
 
 
 def _port_state(cfg, params, stats):
-    model, spec = build_segmentor(cfg)
+    model, spec = build_segmentor(cfg, device='cpu')
     load_flax_variables(model, params, stats)
     state = TrainState(model, build_optimizer(cfg, model.parameters()),
                        build_schedule(cfg, EPOCHS, ITERS))
@@ -168,7 +168,7 @@ def test_guard_drops_a_non_finite_update():
     whole (params, momentum buffers, BatchNorm statistics as before), step
     advances and the update count, hence the schedule, does not."""
     cfg = _cfg()
-    model, spec = build_segmentor(cfg)
+    model, spec = build_segmentor(cfg, device='cpu')
     init_weights(model, torch.Generator().manual_seed(2))
     state = TrainState(model, build_optimizer(cfg, model.parameters()),
                        build_schedule(cfg, EPOCHS, ITERS))
@@ -202,7 +202,7 @@ def test_train_step_on_cpu_counts_no_kernel_launch():
     before = [c.launches for c in counters]
     losses = []
     for _ in range(2):
-        model, spec = build_segmentor(cfg)
+        model, spec = build_segmentor(cfg, device='cpu')
         init_weights(model, torch.Generator().manual_seed(5))
         state = TrainState(model, build_optimizer(cfg, model.parameters()),
                            build_schedule(cfg, EPOCHS, ITERS))
@@ -215,7 +215,7 @@ def test_train_step_on_cpu_counts_no_kernel_launch():
 
 def test_training_forward_needs_a_generator():
     cfg = _cfg()
-    model, _ = build_segmentor(cfg)
+    model, _ = build_segmentor(cfg, device='cpu')
     batch = to_device(synthetic_batch(cfg, batch_size=1, seed=2), 'cpu')
     with pytest.raises(ValueError, match='Generator'):
         model.train()(batch)
