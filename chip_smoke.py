@@ -9,7 +9,9 @@ Phases (each asserts or raises; nothing is caught):
   1. device: the card's name and power limit; TF32 off for float32 matmuls
      and convolutions, so float32 comparisons are float32;
   2. build: compiles every kernel source of openseg3d_tpu_torch/csrc/ with
-     nvcc for sm_90a, one nvcc process each, all started together;
+     nvcc for sm_90a, one nvcc process each, all started together; prints
+     each kernel's registers and spills (ptxas); the bf16 tensor-core
+     kernels must not spill;
   3. kernel vs plain: the eval window-attention kernel (B1) against its plain
      PyTorch version at every (T, C) the default config's window levels give
      the 4 stages, in float32 (max abs error <= 1e-5) and bfloat16 (at most
@@ -19,10 +21,14 @@ Phases (each asserts or raises; nothing is caught):
   3b. train kernels vs plain: the train attention forward (B2f) and backward
      (B2b) against the plain version and its autograd gradient at the same
      (T, C), float32 and bfloat16, drop rate 0 and 0.1 (the same hash mask on
-     both sides), for a random cotangent that is zero past nw: forward as
-     phase 3 (float32 within 1e-5 of the largest output), dq, dk and dv each
-     within 1e-4 (float32) or 4 bf16 ulps (bfloat16) of their largest
-     magnitude; times both (forward, backward);
+     both sides), for a random cotangent that is zero past nw: forward
+     float32 within 1e-5 of the largest output, bfloat16 within
+     train_forward_bound (2^-7 |plain| + 2^-8 / (1 - p) max|v|: the kernel
+     rounds the softmax weights to bf16, as the TPU kernel does); dq, dk and
+     dv each within 1e-4 (float32) or 4 bf16 ulps (bfloat16) of their
+     largest magnitude; windows past nw zero, gradients finite; then per
+     shape in bf16: B2f and B2b at rate 0 and 0.1, SDPA with dropout 0.1,
+     SDPA's backward (live windows) and both bounds, and the plain version;
   3c. 1-NN vs plain: the B3 kernel against its plain version on the real
      frame's voxel centres (the stage-4 aux centres against the
      full-resolution ones, the train step's label transfer) and on random
@@ -50,9 +56,10 @@ Phases (each asserts or raises; nothing is caught):
      dropout 0.1, drop path, head dropout) on the same frame; checks the
      launches of one step (B2f and B2b once per attention level and layer,
      B3 once), a finite loss, finite gradients, moved parameters and
-     BatchNorm statistics; takes the same first step through the plain
-     versions and compares loss and gradients; times 1 + 5 steps; profiles
-     one step of each;
+     BatchNorm statistics; under the profiler the bf16 step runs B2f and B2b
+     as the tensor-core kernels, never the float32 FMA bodies; takes the
+     same first step through the plain versions and compares loss and
+     gradients; times 1 + 5 steps; profiles one step of each;
   5. small reference: a tiny float32 model on the GPU against the same model
      on the CPU (whose path tests/test_torch_segformer.py and
      tests/test_torch_train.py hold against the JAX package): the eval
@@ -60,7 +67,8 @@ Phases (each asserts or raises; nothing is caught):
      CPU's and the GPU's generators give different bits for one seed): the
      loss abs/rel 1e-4, every gradient, parameter and BatchNorm statistic
      within 1e-4 x (1 + the leaf's largest magnitude).
-  6. yardsticks: for every kernel of the JSON line, the time of one PyTorch
+  6. yardsticks: for every kernel of the JSON line, the device time (the
+     call's kernels under the profiler, host gaps not counted) of one PyTorch
      call that computes the same function on the main path's inputs
      (scaled_dot_product_attention with the bias as attn_mask for B1, B2f
      (dropout 0.1) and B4, its backward at dropout 0 for B2b, a
@@ -94,6 +102,7 @@ Every time printed comes with the card's name and power limit.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import statistics
@@ -101,10 +110,12 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from unittest import mock
 
-# the port must not need JAX or the JAX package: make any import of them fail
-for _name in ('jax', 'jaxlib', 'flax', 'optax', 'openseg3d_tpu'):
+# the port must not need JAX, the JAX package or its benchmark script: make
+# any import of them fail
+for _name in ('jax', 'jaxlib', 'flax', 'optax', 'openseg3d_tpu', 'bench'):
     sys.modules[_name] = None
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -130,6 +141,18 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 5) -> float:
+    """Device milliseconds of one fn() call: the durations of the kernels,
+    copies and memsets it launches (torch.profiler), summed over `iters`
+    calls and divided by them. Unlike cuda_ms, host time between launches
+    is not counted: a call whose host side (autograd's backward, say)
+    outlasts its kernels is timed by its kernels."""
+    fn()
+    events, _ = trace(lambda: [fn() for _ in range(iters)])
+    return sum(e['dur'] for e in events
+               if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')) / 1e3 / iters
+
+
 def attention_case(gen, n, t, c, nw, dtype, nhead=8):
     """Model-shaped packed q|k|v: q per-head unit and scaled by 1/tau
     (10..100), k unit, padded tokens zero with bias -1e9, window 1 fully
@@ -153,6 +176,41 @@ def attention_case(gen, n, t, c, nw, dtype, nhead=8):
     packed = torch.where(valid[..., None], torch.cat([q, k, v], -1), 0).to(dtype)
     bias = torch.where(valid, 0.0, -1e9)
     return packed, bias, torch.tensor([nw], dtype=torch.int32, device=dev)
+
+
+def kernel_name(mangled: str) -> str:
+    """'name<template int>' of a mangled kernel whose name ends in _kernel:
+    an Itanium-mangled identifier is its length in digits, then the name."""
+    import re
+    for run in re.finditer(r'\d+', mangled):
+        for start in range(run.start(), run.end()):
+            end = run.end() + int(mangled[start:run.end()])
+            ident = mangled[run.end():end]
+            if ident.endswith('_kernel'):
+                arg = re.match(r'ILi(\d+)E', mangled[end:])
+                return f'{ident}<{arg.group(1)}>' if arg else ident
+    return mangled
+
+
+def ptxas_usage(log: str):
+    """[(kernel<template args>, registers, spill store bytes, spill load
+    bytes)] of every entry function in nvcc's -Xptxas -v output."""
+    import re
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
 
 
 def check_kernel(spec, levels, channels, depths):
@@ -208,16 +266,19 @@ def live_cotangent(gen, n, t, c, nw, dtype):
 
 def check_train_kernels(levels, channels):
     """Phase 3b. Returns (max float32 forward error, max float32 gradient
-    error), in absolute terms."""
+    error), in absolute terms. Prints per shape, in bf16: B2f and B2b at
+    rate 0 and 0.1, SDPA with dropout 0.1 and SDPA's backward on the live
+    windows, and the bounds of B2f and B2b."""
     import torch
-    from openseg3d_tpu_torch.ops.attention import (window_attention_packed_train_plain,
+    from openseg3d_tpu_torch.ops.attention import (train_forward_bound,
+                                                   window_attention_packed_train_plain,
                                                    window_attention_train_backward,
                                                    window_attention_train_forward)
     gen = torch.Generator(device='cuda').manual_seed(2)
     seed = torch.tensor([20260516], dtype=torch.int32, device='cuda')
-    max_fwd32, max_grad32 = 0.0, 0.0
-    print('stage   T    C     W    nw  fwd_f32   grad_f32(rel)  fwd_bf16  grad_bf16(rel)  '
-          'kfwd_ms  kbwd_ms  pfwd_ms  pbwd_ms')
+    max_fwd32, max_grad32, rows = 0.0, 0.0, []
+    print('stage   T    C     W    nw  fwd_f32   grad_f32(rel)  fwd_bf16(/bound)  '
+          'grad_bf16(rel)  pfwd_ms  pbwd_ms')
     for s, stage_levels in enumerate(levels):
         c = channels[s]
         for lv in stage_levels:
@@ -241,9 +302,12 @@ def check_train_kernels(levels, channels):
                     if dtype == torch.float32:
                         assert fwd_abs <= 1e-5 * max(1.0, float(want.abs().max())), \
                             (s, t, c, rate, fwd_abs)
+                        fwd_rel = fwd_abs
                     else:
-                        assert bool((err <= 2.0 ** -7 * want.abs() + 1e-6).all()), \
-                            (s, t, c, rate, fwd_abs)
+                        # the kernel rounds the softmax weights to bf16, as the TPU kernel
+                        lim = train_forward_bound(want, packed, 8, rate)
+                        assert bool((err <= lim).all()), (s, t, c, rate, fwd_abs)
+                        fwd_rel = float((err / lim.clamp(min=1e-30)).max())
                     # dq, dk and dv, each against its own largest magnitude
                     g_abs, g_rel = 0.0, 0.0
                     for part in range(3):
@@ -255,14 +319,21 @@ def check_train_kernels(levels, channels):
                     bound = 1e-4 if dtype == torch.float32 else 4 * 2.0 ** -7
                     assert g_rel <= bound, (s, t, c, rate, dtype, g_rel)
                     assert not out[nw:].any() and not dpk[nw:].any()
-                    res[(dtype, rate)] = (fwd_abs, g_abs, g_rel)
+                    assert bool(torch.isfinite(dpk.float()).all())
+                    res[(dtype, rate)] = (fwd_rel, g_abs, g_rel)
                     if dtype == torch.float32:
                         max_fwd32, max_grad32 = max(max_fwd32, fwd_abs), max(max_grad32, g_abs)
-            # time the production case (bf16, rate 0.1); kernel and plain in turns
-            out, stats = window_attention_train_forward(packed, bias, seed, nwt, 8, 0.1)
-            kf = lambda: window_attention_train_forward(packed, bias, seed, nwt, 8, 0.1)  # noqa: E731
-            kb = lambda: window_attention_train_backward(packed, bias, seed, nwt, out,  # noqa: E731
-                                                         stats, gout, 8, 0.1)
+            # time the production dtype (bf16) at rate 0 and 0.1; kernel and
+            # plain in turns, the library calls on the live windows
+            times = {}
+            for rate in (0.0, 0.1):
+                out, stats = window_attention_train_forward(packed, bias, seed, nwt, 8, rate)
+                kf = functools.partial(window_attention_train_forward, packed, bias, seed, nwt,
+                                       8, rate)
+                kb = functools.partial(window_attention_train_backward, packed, bias, seed, nwt,
+                                       out, stats, gout, 8, rate)
+                kf(), kb()
+                times[rate] = (device_ms(kf, 10), device_ms(kb, 10))
             x = packed.clone().requires_grad_(True)
 
             def pf():
@@ -272,14 +343,24 @@ def check_train_kernels(levels, channels):
             def pfb():
                 window_attention_packed_train_plain(x, bias, seed, nwt, 8, 0.1).backward(gout)
 
-            kf(), kb(), pf(), pfb()
-            kf_ms, kb_ms = cuda_ms(kf, 5), cuda_ms(kb, 5)
+            pf(), pfb()
             pf_ms, pfb_ms = cuda_ms(pf, 3), cuda_ms(pfb, 3)
-            pb_ms = pfb_ms - pf_ms
+            q, k, v = (y.contiguous() for y in packed[:nw].split(c, dim=-1))
+            sd_ms = sdpa_ms(q, k, v, bias[:nw], dropout_p=0.1, iters=10)
+            sb_ms = sdpa_backward_ms(q, k, v, bias[:nw], iters=10)
+            bf_ms, _ = attention_bound(nw, t, c, 2, kind='train_fwd')
+            bb_ms, _ = attention_bound(nw, t, c, 2, kind='bwd')
+            rows.append((s + 1, t, c, nw, times[0.0][0], times[0.1][0], times[0.0][1],
+                         times[0.1][1], sd_ms, sb_ms, bf_ms, bb_ms))
             r32, r16 = res[(torch.float32, 0.1)], res[(torch.bfloat16, 0.1)]
             print(f'{s + 1:5d} {t:4d} {c:4d} {n:5d} {nw:5d}  {r32[0]:.2e}  {r32[2]:.2e}       '
-                  f'{r16[0]:.2e}  {r16[2]:.2e}        {kf_ms:7.4f}  {kb_ms:7.4f}  {pf_ms:7.4f}  '
-                  f'{pb_ms:7.4f}', flush=True)
+                  f'{r16[0]:.3f}             {r16[2]:.2e}        {pf_ms:7.4f}  '
+                  f'{pfb_ms - pf_ms:7.4f}', flush=True)
+    print('bf16 per shape, live windows (device ms per call): B2f at rate 0 / 0.1, B2b at rate '
+          '0 / 0.1, SDPA with dropout 0.1, SDPA backward, bound of B2f / B2b')
+    for row in rows:
+        print('  st {} T {:4d} C {:4d} nw {:5d}: B2f {:.4f} / {:.4f}  B2b {:.4f} / {:.4f}  '
+              'SDPA {:.4f}  SDPA bwd {:.4f}  bound {:.5f} / {:.5f}'.format(*row), flush=True)
     return max_fwd32, max_grad32
 
 
@@ -356,17 +437,17 @@ def sdpa_inputs(q, k, v, bias, nhead=8):
 
 
 def sdpa_ms(q, k, v, bias, dropout_p=0.0, iters=5):
-    """ms of one scaled_dot_product_attention call (scale 1: q comes scaled)."""
+    """Device ms of one scaled_dot_product_attention call (scale 1: q comes
+    scaled)."""
     import torch.nn.functional as F
     (qh, kh, vh), mask = sdpa_inputs(q, k, v, bias)
     fn = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,  # noqa: E731
                                                 dropout_p=dropout_p, scale=1.0)
-    fn()
-    return cuda_ms(fn, iters)
+    return device_ms(fn, iters)
 
 
 def sdpa_backward_ms(q, k, v, bias, iters=3):
-    """ms of the backward of one scaled_dot_product_attention call at
+    """Device ms of the backward of one scaled_dot_product_attention call at
     dropout 0, for a random cotangent."""
     import torch
     import torch.nn.functional as F
@@ -375,8 +456,7 @@ def sdpa_backward_ms(q, k, v, bias, iters=3):
     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=1.0)
     gout = torch.randn_like(out)
     fn = lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True)  # noqa: E731
-    fn()
-    return cuda_ms(fn, iters)
+    return device_ms(fn, iters)
 
 
 def unpacked_case(gen, n, t, c, dtype, nhead=8):
@@ -527,19 +607,19 @@ def knn_yardstick(cfg, spec, batch, chunk=4096):
             out.append(d.masked_fill(~valid, float('inf')).argmin(dim=1))
         return torch.cat(out)
 
-    cdist_argmin()
-    lib_ms = cuda_ms(cdist_argmin, 3)
+    lib_ms = device_ms(cdist_argmin, 3)
     q, p, pv = dst.shape[0], src.shape[0], int(valid.sum())
     bms, by = bound(q * 12 + p * 13 + q * 4, 8.0 * q * pv, FP32_FLOPS_PER_S)
     return dict(library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
 def frame_batch(cfg, device):
-    """One bench.py frame (RandomState(0)), voxelized and padded."""
+    """One bench.py frame (the port's copy of its generator, RandomState(0)),
+    voxelized and padded."""
     import numpy as np
-    from bench import make_waymo_like_cloud
     from openseg3d_tpu_torch.core.voxelizer import VoxelGenerator, majority_voxel_labels
     from openseg3d_tpu_torch.data.batch import collate_padded, pad_sample, to_device
+    from openseg3d_tpu_torch.data.synthetic import make_waymo_like_cloud
     rng = np.random.RandomState(0)
     pts = make_waymo_like_cloud(rng, N_POINTS)
     vg = VoxelGenerator(cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE)
@@ -842,11 +922,16 @@ def run_train_slice(cfg, batch, expected_attention):
 
     # one profiled step of each
     events, wall = trace(lambda: step(state, batch, seed=9))
+    # the bf16 step runs the tensor-core kernels; the float32 FMA bodies
+    # (window_attention_train_{fwd,dq,dkdv}_kernel) must not launch
     prof = dict(wall_ms=wall, busy_ms=busy_ms(events),
-                b2f=named_kernels(events, 'window_attention_train_fwd_kernel'),
-                b2b=tuple(map(sum, zip(named_kernels(events, 'window_attention_train_dq_kernel'),
-                                       named_kernels(events, 'window_attention_train_dkdv_kernel')))),
-                b3=named_kernels(events, 'nearest_point_kernel'))
+                b2f=named_kernels(events, 'window_attention_train_fwd_mma_kernel'),
+                b2b=tuple(map(sum, zip(
+                    named_kernels(events, 'window_attention_train_dq_mma_kernel'),
+                    named_kernels(events, 'window_attention_train_dkdv_mma_kernel')))),
+                b3=named_kernels(events, 'nearest_point_kernel'),
+                fma=sum(named_kernels(events, f'window_attention_train_{k}_kernel')[1]
+                        for k in ('fwd', 'dq', 'dkdv')))
     print('kernel step, kernels with the most device time (name, ms, count):', flush=True)
     for row in top_kernels(events):
         print(f'  {row}', flush=True)
@@ -860,6 +945,7 @@ def run_train_slice(cfg, batch, expected_attention):
     print(f'plain step under the profiler (ms, kernels): {plain_prof}', flush=True)
     assert prof['b2f'][1] == expected_attention and prof['b3'][1] == 1, prof
     assert prof['b2b'][1] == 2 * expected_attention, prof           # dq + dk/dv passes
+    assert prof['fma'] == 0, prof
     assert [ranges[k][0] for k in ('b2f', 'b2b', 'b3')] == \
         [expected_attention, expected_attention, 1], ranges
     return dict(launches=launches, loss=loss, plain_loss=plain_loss, loss_rel=loss_rel,
@@ -1009,6 +1095,7 @@ def run_cli(smi, per_step):
     from openseg3d_tpu_torch.ops.attention import (window_attention_packed,
                                                    window_attention_train_backward,
                                                    window_attention_train_forward)
+    from openseg3d_tpu_torch.data.synthetic import make_waymo_like_cloud
     from openseg3d_tpu_torch.ops.knn import nearest_point
     from openseg3d_tpu_torch.tools import eval as eval_tool
     from openseg3d_tpu_torch.tools import train as train_tool
@@ -1087,7 +1174,12 @@ def run_cli(smi, per_step):
 
         # (c) real schema: WaymoDataset with instance paste and PolarMix
         tree = os.path.join(tmp, 'tree')
-        make_tree(tree, 2, N_POINTS)
+        # make_tree draws its frames with bench.make_waymo_like_cloud: the
+        # port's copy (held equal by tests/test_torch_data.py) stands in for it
+        stand_in = types.ModuleType('bench')
+        stand_in.make_waymo_like_cloud = make_waymo_like_cloud
+        with mock.patch.dict(sys.modules, {'bench': stand_in}):
+            make_tree(tree, 2, N_POINTS)
         hist_c, secs = timed(train_tool.main, [
             '--cfg_file', os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'),
             '--data_dir', tree, '--batch_size', '1', '--epochs', '1', '--num_workers', '2',
@@ -1145,10 +1237,11 @@ def main() -> int:
     built = _build.build_all()
     print(f'built {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s')
     for name, (path, seconds, log) in built.items():
-        print(f'  {path.relative_to(REPO)}')
-        for line in log.splitlines():
-            if 'spill' in line and ' 0 bytes spill stores' not in line:
-                print('    ptxas:', line.strip())
+        print(f'  {path.relative_to(REPO)}: ptxas registers, spill stores / loads (bytes)')
+        for kernel, regs, stores, loads in ptxas_usage(log):
+            print(f'    {kernel:48s} {regs:4d}  {stores:4d} / {loads:4d}')
+            # the tensor-core (bf16) kernels must not spill
+            assert '_mma_kernel' not in kernel or stores == loads == 0, (kernel, stores, loads)
 
     # 3. kernel vs plain at the main path's shapes
     cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'))

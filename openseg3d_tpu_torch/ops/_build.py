@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with nvcc for
 Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first use and
-loaded with ctypes. The hash covers the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. A failed build raises
+loaded with ctypes. The hash covers the source, every ``csrc/*.cuh`` header
+and the flags, so an edited source or header is rebuilt and a stale library
+is never loaded. A failed build raises
 with nvcc's output. ``build_all`` compiles several sources at once, one nvcc
 process each. Nothing is compiled or loaded when the package is imported:
 CPU-only hosts never come here.
@@ -38,8 +39,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for src in (CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))):
+        digest.update(src.name.encode() + b'\0' + src.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 

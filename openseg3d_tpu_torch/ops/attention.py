@@ -284,11 +284,46 @@ def _launch_unpacked(q, k, v, bias, nhead):
     return out
 
 
+MMA_MAX_HEADS = 8
+
+
+def _check_mma_args(nhead: int, **tensors):
+    """The bf16 train kernels run one warp per head and stage rows with
+    16-byte copies: nhead <= 8, C a multiple of 8, every bf16 operand
+    16-byte aligned."""
+    c = tensors['packed'].shape[2] // 3
+    if nhead > MMA_MAX_HEADS or c % 8:
+        raise ValueError(f'the bfloat16 train kernels take nhead <= {MMA_MAX_HEADS} and C a '
+                         f'multiple of 8, got nhead={nhead}, C={c}')
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned for the bfloat16 train kernels')
+
+
+def train_forward_bound(plain_out: torch.Tensor, packed: torch.Tensor, nhead: int,
+                        drop_rate: float) -> torch.Tensor:
+    """Elementwise bound on |bf16 kernel - plain| for the train forward,
+    [N, T, C] float32. The plain version keeps the softmax weights in
+    float32; the bf16 kernel (as the TPU kernel, ``attn.astype(v.dtype)``)
+    rounds each weight, dropout scale included, to bf16 (relative 2^-8)
+    before P V, which moves a head's output by at most 2^-8 / (1 - p) times
+    the largest |v| of that window and head (the weights sum to 1); and both
+    round the output once to bf16, 2^-7 of it at most together:
+    |err| <= 2^-7 |plain| + 2^-8 / (1 - p) max|v|."""
+    n, t, c3 = packed.shape
+    c = c3 // 3
+    vmax = packed[..., 2 * c:].float().abs().reshape(n, t, nhead, c // nhead).amax(dim=(1, 3))
+    vmax = vmax[:, None, :, None].expand(n, t, nhead, c // nhead).reshape(n, t, c)
+    return 2.0 ** -7 * plain_out.float().abs() + 2.0 ** -8 * dropout_inv_keep(drop_rate) * vmax
+
+
 def window_attention_train_forward(packed, bias, seed, nw, nhead: int, drop_rate: float):
     """The train forward kernel (B2 forward). Returns (out [N, T, C] in
     packed's dtype, stats [N, nhead, T, 2] float32 = per query row the
     softmax's max logit and sum of exp(logit - max), the residual the
-    backward kernel needs). ``.launches`` counts its launches."""
+    backward kernel needs). float32 runs FMA bodies, bfloat16 tensor cores
+    (within ``train_forward_bound`` of the plain version). ``.launches``
+    counts its launches."""
     _check_cuda_args(packed, bias, nhead, nw, seed)
     lib = _build.load('window_attention_train')
     fn = lib.window_attention_train_forward
@@ -300,6 +335,8 @@ def window_attention_train_forward(packed, bias, seed, nw, nhead: int, drop_rate
     stats = torch.empty((n, nhead, t, 2), dtype=torch.float32, device=packed.device)
     if n == 0 or t == 0:
         return out, stats
+    if packed.dtype == torch.bfloat16:
+        _check_mma_args(nhead, packed=packed, out=out)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         rc = fn(packed.data_ptr(), bias.data_ptr(), nw.data_ptr(), seed.data_ptr(),
@@ -315,9 +352,10 @@ def window_attention_train_forward(packed, bias, seed, nw, nhead: int, drop_rate
 def window_attention_train_backward(packed, bias, seed, nw, out, stats, gout,
                                     nhead: int, drop_rate: float) -> torch.Tensor:
     """The train backward kernels (B2 backward: a dq pass, then a dk/dv
-    pass). out and stats are the forward's; gout [N, T, C] is the cotangent
-    of out. Returns dpacked [N, T, 3C] = dq|dk|dv in packed's dtype, zero
-    for windows past nw. ``.launches`` counts one per backward."""
+    pass; float32 FMA bodies, bfloat16 tensor cores). out and stats are the
+    forward's; gout [N, T, C] is the cotangent of out. Returns dpacked
+    [N, T, 3C] = dq|dk|dv in packed's dtype, zero for windows past nw.
+    ``.launches`` counts one per backward."""
     _check_cuda_args(packed, bias, nhead, nw, seed)
     n, t, c3 = packed.shape
     for name, x, shape, dtype in (('out', out, (n, t, c3 // 3), packed.dtype),
@@ -336,6 +374,8 @@ def window_attention_train_backward(packed, bias, seed, nw, out, stats, gout,
     delta = torch.empty((n, nhead, t), dtype=torch.float32, device=packed.device)
     if n == 0 or t == 0:
         return dpacked
+    if packed.dtype == torch.bfloat16:
+        _check_mma_args(nhead, packed=packed, out=out, gout=gout, dpacked=dpacked)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         rc = fn(packed.data_ptr(), bias.data_ptr(), nw.data_ptr(), seed.data_ptr(),

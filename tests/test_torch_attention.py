@@ -4,7 +4,15 @@ runs them) and its einsum oracle, and the public functions' device dispatch.
 The CUDA kernels against the plain versions are in tests/test_torch_cuda.py.
 
 Tolerances: eval forward float32 on both sides with the same math in another
-summation order, atol/rtol 1e-5. The unpacked op (B4) at the JAX test's own
+summation order, atol/rtol 1e-5. Train path in bfloat16 (the production
+dtype): the TPU kernel rounds the softmax weights and dS to bf16 before their
+products (``attn.astype(v.dtype)``, ``ds.astype(k.dtype)``), and so does the
+CUDA kernel; the plain version keeps them in float32. The forward is held to
+``train_forward_bound`` (2^-7 |plain| + 2^-8 / (1 - p) max|v| of the window
+and head: one bf16 rounding of the output on each side, and each weight's
+rounding moves the output by at most 2^-8 / (1 - p) of the largest |v|), and
+each of dq, dk and dv to 4 bf16 ulps of its largest magnitude, the bounds the
+card holds the CUDA kernel to. The unpacked op (B4) at the JAX test's own
 tolerances (tests/test_attention.py): float32 2e-5, bfloat16 3e-2 (the Pallas
 kernel rounds the softmax weights to bf16 before attn @ v; the port keeps
 them in float32, as the oracle does). Train path at drop rate 0, as
@@ -33,6 +41,7 @@ from openseg3d_tpu.ops.attention import \
 from openseg3d_tpu_torch.ops.attention import (attention_group, dropout_keep_mask,
                                                dropout_threshold, fused_window_attention,
                                                fused_window_attention_plain, mix32,
+                                               train_forward_bound,
                                                window_attention_packed,
                                                window_attention_packed_plain,
                                                window_attention_packed_train,
@@ -266,6 +275,111 @@ def test_train_plain_matches_pallas_train_kernel_at_zero_drop(t, c):
     for s in range(b):                                 # windows past nw: zero
         assert not mine[s * wps + nw[s]:(s + 1) * wps].any()
         assert not grad[s * wps + nw[s]:(s + 1) * wps].any()
+
+
+GRAD_BOUND_BF16 = 4 * 2.0 ** -7      # 4 bf16 ulps of each leaf's largest magnitude
+
+
+def _max_grad_rel(got, want, c):
+    """The largest of dq, dk and dv's max |got - want| / max |want|."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got.float().split(c, -1), want.float().split(c, -1)))
+
+
+@pytest.mark.parametrize('t,c', [(16, 48), (64, 96)])
+def test_train_plain_bf16_within_bound_of_pallas_train_kernel(t, c):
+    """In bf16 the Pallas train kernel (interpret mode, drop rate 0) rounds P
+    and dS as the CUDA kernel does; the port's plain version stays within
+    the bounds the card holds the CUDA kernel to. Windows without a valid
+    key are left out, as above (the Pallas chunked softmax)."""
+    rng = np.random.RandomState(7 * t + c)
+    b = 2
+    wps = 2 * _train_group(t, c, 2)
+    nw = [2, wps - 3]
+    packed, bias, nw = _packed_case(rng, b, wps, t, c, nw)
+    live = np.zeros((b * wps, 1, 1), np.float32)
+    for s in range(b):
+        live[s * wps:s * wps + nw[s]] = 1.0
+    live[~(bias == 0).any(axis=1)] = 0.0
+    w = (rng.randn(b * wps, t, c) * live).astype(np.float32)
+    pk16 = torch.from_numpy(packed).bfloat16()
+
+    def jax_loss(p):
+        o = jax_window_attention_packed_train(p, jnp.asarray(bias), jnp.zeros((1,), jnp.int32),
+                                              jnp.asarray(nw), NHEAD, 0.0, True)
+        return jnp.sum(o.astype(jnp.float32) * w), o
+
+    (_, jo), jg = jax.value_and_grad(jax_loss, has_aux=True)(
+        jnp.asarray(pk16.float().numpy()).astype(jnp.bfloat16))
+    assert jo.dtype == jnp.bfloat16 and jg.dtype == jnp.bfloat16
+
+    x = pk16.clone().requires_grad_(True)
+    out = window_attention_packed_train(x, torch.from_numpy(bias), _seed(0),
+                                        torch.from_numpy(nw), NHEAD, 0.0)
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    assert out.dtype == torch.bfloat16 and x.grad.dtype == torch.bfloat16
+
+    keep = torch.from_numpy(live[:, 0, 0] > 0)
+    mine = out.detach().float()
+    pallas = torch.from_numpy(np.asarray(jo, np.float32))
+    bound = train_forward_bound(mine, pk16, NHEAD, 0.0)
+    assert bool(((pallas - mine).abs() <= bound)[keep].all()), \
+        float((pallas - mine).abs()[keep].max())
+    rel = _max_grad_rel(torch.from_numpy(np.asarray(jg, np.float32)), x.grad, c)
+    assert rel <= GRAD_BOUND_BF16, rel
+
+
+def _rounded_p_train(packed, bias, keep, inv_keep, nhead, gout):
+    """The CUDA kernel's rounding, in plain PyTorch: the dropped and scaled
+    softmax weights rounded to bf16 before P V, the output rounded to bf16;
+    in the backward D = dO . O from that output, dv from the bf16 weights,
+    dS rounded to bf16 before dS K and dS^T Q. Returns (out, dpacked), bf16."""
+    n, t, c3 = packed.shape
+    c, hd = c3 // 3, c3 // 3 // nhead
+    q, k, v = (x.float().reshape(n, t, nhead, hd) for x in packed.split(c, -1))
+    logits = torch.einsum('nthd,nshd->nhts', q, k) + bias.float()[:, None, None, :]
+    p = torch.softmax(logits, dim=-1)
+    zs = keep.float() * inv_keep
+    pd = (p * zs).bfloat16().float()
+    out = torch.einsum('nhts,nshd->nthd', pd, v).bfloat16()
+    g = gout.float().reshape(n, t, nhead, hd)
+    d = (g * out.float()).sum(-1).permute(0, 2, 1)[..., None]           # [n, h, t, 1]
+    dv = torch.einsum('nhts,nthd->nshd', pd, g)
+    dp = torch.einsum('nthd,nshd->nhts', g, v) * zs
+    ds = (p * (dp - d)).bfloat16().float()
+    dq = torch.einsum('nhts,nshd->nthd', ds, k)
+    dk = torch.einsum('nhts,nthd->nshd', ds, q)
+    dpk = torch.cat([x.reshape(n, t, c) for x in (dq, dk, dv)], -1).bfloat16()
+    return out.reshape(n, t, c), dpk
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('t,c', [(16, 48), (32, 96), (64, 192), (48, 384)])
+def test_bf16_rounding_of_p_and_ds_within_bound(t, c, rate):
+    """Seeded random cases: rounding P (and dS) to bf16 as the kernels do
+    keeps the forward within ``train_forward_bound`` of the plain version
+    and each gradient part within 4 bf16 ulps of its largest magnitude."""
+    rng = np.random.RandomState(t + c + int(rate * 10))
+    for trial in range(3):
+        n = 6
+        packed, bias, nw = _packed_case(rng, 1, n, t, c, [n - 1])
+        pk = torch.from_numpy(packed).bfloat16()
+        bias_t, seed = torch.from_numpy(bias), _seed(trial)
+        keep = dropout_keep_mask(seed, n, NHEAD, t, rate) if rate > 0 else \
+            torch.ones(n, NHEAD, t, t, dtype=torch.bool)
+        gout = torch.from_numpy(rng.randn(n, t, c).astype(np.float32)).bfloat16()
+        gout[n - 1] = 0                                 # the model reads nothing past nw
+        x = pk.clone().requires_grad_(True)
+        want = window_attention_packed_train_plain(x, bias_t, seed, torch.from_numpy(nw),
+                                                   NHEAD, rate)
+        want.backward(gout)
+        got, dpk = _rounded_p_train(pk, bias_t, keep, 1.0 / (1.0 - rate), NHEAD, gout)
+        got[n - 1], dpk[n - 1] = 0, 0                   # windows past nw are not computed
+        err = (got.float() - want.detach().float()).abs()
+        assert bool((err <= train_forward_bound(want.detach(), pk, NHEAD, rate)).all()), \
+            (trial, float(err.max()))
+        rel = _max_grad_rel(dpk, x.grad, c)
+        assert rel <= GRAD_BOUND_BF16, (trial, rel)
 
 
 def test_dropout_hash_is_uint32_arithmetic():

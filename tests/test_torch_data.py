@@ -28,13 +28,14 @@ from openseg3d_tpu_torch.data import transforms as T
 from openseg3d_tpu_torch.data.instance_augmentation import InstanceAugmentation
 from openseg3d_tpu_torch.data.loader import DataLoader, process_shard_indices
 from openseg3d_tpu_torch.data.polarmix import PolarMix
-from openseg3d_tpu_torch.data.synthetic import SyntheticDataset
+from openseg3d_tpu_torch.data.synthetic import SyntheticDataset, make_waymo_like_cloud
 from openseg3d_tpu_torch.data.test_time_aug import MultiScaleFlipAug
 from openseg3d_tpu_torch.data.waymo_dataset import WaymoDataset
 from openseg3d_tpu_torch.utils.pointops import cart2polar
 
 from openseg3d_tpu.config import cfg_from_file as jax_cfg_from_file
 from openseg3d_tpu.utils.pointops import cart2polar as jax_cart2polar
+from bench import make_waymo_like_cloud as bench_make_waymo_like_cloud
 from tools.rehearsal import make_tree
 
 from helpers import TINY_OVERRIDES
@@ -181,6 +182,15 @@ def waymo_tree(tmp_path_factory):
     root = tmp_path_factory.mktemp('waymo')
     make_tree(str(root), 3, 4096)
     return str(root)
+
+
+def test_waymo_like_cloud_equals_bench():
+    """The port's copy of the benchmark frame generator gives bench.py's
+    array, bit for bit, for the same RandomState."""
+    got = make_waymo_like_cloud(np.random.RandomState(0), 3000)
+    want = bench_make_waymo_like_cloud(np.random.RandomState(0), 3000)
+    assert got.shape == (3000, 6) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize('mode', ['training', 'validation'])

@@ -149,3 +149,25 @@ def test_confusion_matrix_and_iou_equal_jax():
     metric.add(preds[valid], labels[valid])
     assert metric.hist.sum() == 2 * int(mine.sum())
     assert 0.0 <= metric.get_metric()['mIOU'] <= 1.0
+
+
+def test_library_path_covers_headers(tmp_path, monkeypatch):
+    """A kernel's library name hashes its source and every csrc/*.cuh header,
+    so an edited header is rebuilt instead of loading a stale library (no
+    nvcc needed: only the path is computed)."""
+    import shutil
+
+    from openseg3d_tpu_torch.ops import _build
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, 'CSRC', csrc)
+    header = csrc / 'window_attention_mma.cuh'
+    before = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert before['window_attention_train'] == _build.library_path('window_attention_train')
+    header.write_text(header.read_text() + '\n// edited\n')
+    after = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert all(after[name] != before[name] for name in _build.KERNELS)
+    (csrc / 'window_attention_train.cu').write_text(
+        (csrc / 'window_attention_train.cu').read_text() + '\n')
+    assert _build.library_path('window_attention_train') != after['window_attention_train']
+    assert _build.library_path('nearest_point') == after['nearest_point']
