@@ -1,7 +1,7 @@
 // Window attention for Hopper (sm_90a): the eval attention core of every
 // SWFormer encoder layer (packed q|k|v), and the public unpacked op.
 //
-// One kernel body serves two TPU kernels of openseg3d_tpu/ops/attention.py:
+// This source serves two TPU kernels of openseg3d_tpu/ops/attention.py:
 //   * fused_window_attention_packed -> _kernel_packed (pallas_call at :317),
 //     through window_attention_packed below: q, k and v are column blocks
 //     0, C and 2C of one packed [N, T, 3C] array (row stride 3C), and
@@ -13,34 +13,43 @@
 //     arrays (row stride C) and every window is computed (no nw).
 // Same semantics as both: for each window n and head h,
 //   out[n, :, h] = softmax(q_h k_h^T + bias[n]) v_h,
-// computed in float32 from float32 or bfloat16 inputs, the output rounded
-// once to the input dtype. bias is 0 for real tokens and -1e9 for padding.
-// A fully padded window has every logit at -1e9 (float32 spacing there is 64,
-// so the q.k terms vanish): a uniform softmax over the window's own T keys,
-// the mean of its own v rows, as the einsum oracle reference_window_attention
+// float32 sums from float32 or bfloat16 inputs, the output rounded once to
+// the input dtype. bias is 0 for real tokens and -1e9 for padding. A fully
+// padded window has every logit at -1e9 (float32 spacing there is 64, so the
+// q.k terms vanish): a uniform softmax over the window's own T keys, the
+// mean of its own v rows, as the einsum oracle reference_window_attention
 // gives (zero in the model, whose padded rows are zero). The TPU kernel's
 // grouped path differs there: its block-diagonal -1e9 spreads the softmax over
 // all G windows of its group.
 //
-// Design. The TPU kernel masks lanes per head and pays nhead times the MXU
-// work, because sub-128-lane slicing is costly there. Here each block takes
-// its own (window, head group) slice straight from the rows: q at columns
-// [h*hd, (h+1)*hd) of the q rows, k and v likewise. One thread owns one query
-// row of one head: its q row and its output accumulator live in registers;
-// the block streams the window's k and v rows for its heads through shared
-// memory in tiles of kKeyTile keys and runs an online softmax (running max and
-// sum), so T = 800 needs no [T, T] buffer and no special case. Small windows
-// pack several heads into one block (T * heads <= 128 rows) so that blocks
-// stay full.
+// What bounds it on this card: per window 4 T^2 C flops (q.k and p.v)
+// against reading q, k, v and the bias once and writing out once,
+// T (8C + 4) bytes in bf16. Bytes / 3.35 TB/s exceed flops / 989 TFLOP/s
+// (bf16 tensor cores) up to T ~ 590, so every main-path level but T = 800
+// is bound by memory on tensor cores; on the CUDA cores' float32 FMAs
+// (67 TFLOP/s) every level with T >= 40 would be bound by operations.
 //
-// What bounds it on this card: the work is 4*N*T^2*C flops (q.k and p.v),
-// and it reads q, k and v once (3*N*T*C elements) and writes out once
-// (N*T*C). In bf16, bytes / 3.35 TB/s exceeds flops / 989 TFLOP/s up to
-// T ~ 590, so every main-path level but T = 800 is bound by memory. head_dim is 6..48, below the K of 16 that
-// mma/wgmma need and often not a multiple of 8, so this kernel uses float32
-// FMAs, not tensor cores, and is bound by FMA throughput and latency well above
-// either bound. Tiling with wgmma, packing several heads into one MMA, and
-// vectorised 16-byte loads are later work.
+// Two bodies, chosen by dtype, width and alignment, never on failure:
+// bf16 with C % 8 == 0 and 16-byte aligned q, k, v and out (every model
+//   shape): tensor cores, window_attention_mma_kernel, the body of the train
+//   forward (wa_mma::attend_rows in window_attention_mma.cuh) without dropout
+//   and statistics. A block is one window and 16 query rows, one warp per
+//   head (up to 8; more heads are split into groups of 8 over grid z), so
+//   the window's k and v rows are read once per block for all its heads:
+//   q rows staged once, k and v rows streamed through shared memory by
+//   16-byte cp.async in double-buffered tiles, logits and P V on mma.sync
+//   (bf16 in, float32 sums), FlashAttention-2's online softmax on the
+//   accumulator fragments, P rounded to bf16 before P V as the TPU kernel
+//   rounds it (attn.astype(v.dtype)), keys past T at -inf.
+// float32, and bf16 at other widths or alignments (corners of the public
+//   unpacked op that no model reaches): FMA bodies, window_attention_kernel.
+//   One thread owns one query row of one head, its q row and output
+//   accumulator in registers; the block streams the window's k and v rows
+//   for its heads through shared memory in tiles of kKeyTile keys as float
+//   and runs an online softmax, several heads per block for small windows
+//   (T * heads <= 128 rows). Tensor cores give no float32 that holds the 1e-5 gates (TF32
+//   keeps ~3 digits); this body serves the small float32 configurations and
+//   the float32 references.
 //
 // Interface: plain C, loaded with ctypes. The launch goes on the caller's
 // stream; each function returns cudaGetLastError() (0 = launched).
@@ -48,6 +57,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "window_attention_mma.cuh"
 
 namespace {
 
@@ -168,7 +180,7 @@ window_attention_kernel(const T* __restrict__ q_base,
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, int stride,
+cudaError_t launch_fma(const void* q, const void* k, const void* v, int stride,
                    const float* bias, const int* nw, void* out,
                    int n, int t, int c, int nhead, int windows_per_sample,
                    cudaStream_t stream) {
@@ -194,35 +206,98 @@ cudaError_t launch(const void* q, const void* k, const void* v, int stride,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, int stride,
-                              const float* bias, const int* nw, void* out, int n, int t,
-                              int c, int nhead, int windows_per_sample, cudaStream_t stream) {
-  switch (c / nhead) {
-    case 6:  return launch<T, 6>(q, k, v, stride, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
-    case 12: return launch<T, 12>(q, k, v, stride, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
-    case 24: return launch<T, 24>(q, k, v, stride, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
-    case 48: return launch<T, 48>(q, k, v, stride, bias, nw, out, n, t, c, nhead, windows_per_sample, stream);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+using wa_mma::bf16;
+
+// grid: x = window, y = 16-row chunk, z = head group (8 heads, the last one
+// possibly fewer). q, k and v point at column 0 of their rows, `stride`
+// elements apart; nw may be null (every window live).
+template <int HD>
+__global__ void __launch_bounds__(32 * wa_mma::kMaxHeads)
+window_attention_mma_kernel(const bf16* __restrict__ q_base, const bf16* __restrict__ k_base,
+                            const bf16* __restrict__ v_base, int stride,
+                            const float* __restrict__ bias, const int* __restrict__ nw,
+                            bf16* __restrict__ out, int t, int c, int windows_per_sample) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = blockIdx.x, r0 = wa_mma::kRows * blockIdx.y;
+  const int col0 = wa_mma::kMaxHeads * HD * blockIdx.z;     // the group's first column
+  const int cols = min(c - col0, wa_mma::kMaxHeads * HD);
+  const size_t win = static_cast<size_t>(n) * t * stride + col0;
+  bf16* out_win = out + static_cast<size_t>(n) * t * c + col0;
+
+  // padding window: zeros, nothing to compute (the whole block returns)
+  if (nw != nullptr && n % windows_per_sample >= nw[n / windows_per_sample]) {
+    wa_mma::zero_rows(out_win, c, r0, t, 0, cols);
+    return;
+  }
+  wa_mma::PlainWeights weights;
+  wa_mma::RowSoftmax sm;
+  float l[2];
+  wa_mma::attend_rows<HD>(q_base + win, k_base + win, v_base + win, stride,
+                          bias + static_cast<size_t>(n) * t, t, r0, cols, out_win, c, smem_raw,
+                          weights, sm, l);
+}
+
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, int stride,
+                       const float* bias, const int* nw, void* out, int n, int t, int c,
+                       int nhead, int windows_per_sample, cudaStream_t stream) {
+  const int heads = nhead < wa_mma::kMaxHeads ? nhead : wa_mma::kMaxHeads;
+  const size_t smem = wa_mma::attend_smem<HD>(heads * HD);
+  auto kernel = window_attention_mma_kernel<HD>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(n, (t + wa_mma::kRows - 1) / wa_mma::kRows, (nhead + heads - 1) / heads);
+  kernel<<<grid, 32 * heads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      stride, bias, nw, static_cast<bf16*>(out), t, c, windows_per_sample);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dispatch
+// ---------------------------------------------------------------------------
+using Launch = cudaError_t (*)(const void*, const void*, const void*, int, const float*,
+                               const int*, void*, int, int, int, int, int, cudaStream_t);
+
+// the launch of head width hd (6, 12, 24 or 48; else null)
+template <template <int> class Body>
+Launch by_head_dim(int hd) {
+  switch (hd) {
+    case 6: return Body<6>::fn;
+    case 12: return Body<12>::fn;
+    case 24: return Body<24>::fn;
+    case 48: return Body<48>::fn;
+    default: return nullptr;
   }
 }
+
+template <int HD> struct FmaF32 { static constexpr Launch fn = launch_fma<float, HD>; };
+template <int HD> struct FmaBf16 { static constexpr Launch fn = launch_fma<bf16, HD>; };
+template <int HD> struct Mma { static constexpr Launch fn = launch_mma<HD>; };
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // q, k, v rows `stride` elements apart; dtype 0 = float32, 1 = bfloat16
 cudaError_t dispatch(const void* q, const void* k, const void* v, int stride,
                      const void* bias, const void* nw, void* out, int n, int t, int c,
-                     int nhead, int windows_per_sample, int dtype, void* stream) {
-  if (n <= 0 || t <= 0 || nhead <= 0 || c % nhead != 0 || windows_per_sample <= 0)
+                     int nhead, int wps, int dtype, void* stream) {
+  if (n <= 0 || t <= 0 || nhead <= 0 || c % nhead != 0 || wps <= 0 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  const int* w = static_cast<const int*>(nw);
-  if (dtype == 0)
-    return dispatch_head_dim<float>(q, k, v, stride, b, w, out, n, t, c, nhead,
-                                    windows_per_sample, s);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(q, k, v, stride, b, w, out, n, t, c, nhead,
-                                            windows_per_sample, s);
-  return cudaErrorInvalidValue;
+  // the tensor-core body stages 16-byte pieces of C-column rows
+  const bool mma = dtype == 1 && c % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(out);
+  const Launch fn = dtype == 0 ? by_head_dim<FmaF32>(c / nhead)
+                    : mma      ? by_head_dim<Mma>(c / nhead)
+                               : by_head_dim<FmaBf16>(c / nhead);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return fn(q, k, v, stride, static_cast<const float*>(bias), static_cast<const int*>(nw), out,
+            n, t, c, nhead, wps, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -232,6 +307,8 @@ extern "C" {
 // packed [n, t, 3c] = q|k|v (dtype 0 = float32, 1 = bfloat16), bias [n, t]
 // float32, nw [n / windows_per_sample] int32, out [n, t, c] of packed's dtype.
 // The caller checks shapes; head_dim c / nhead must be 6, 12, 24 or 48.
+// bfloat16 runs on tensor cores when c % 8 == 0 and packed and out are
+// 16-byte aligned, else on the FMA body.
 int window_attention_packed(const void* packed, const void* bias, const void* nw,
                             void* out, int n, int t, int c, int nhead,
                             int windows_per_sample, int dtype, void* stream) {
@@ -244,6 +321,8 @@ int window_attention_packed(const void* packed, const void* bias, const void* nw
 // q, k, v [n, t, c] of one dtype (0 = float32, 1 = bfloat16), bias [n, t]
 // float32, out [n, t, c] of q's dtype; every window is computed.
 // The caller checks shapes; head_dim c / nhead must be 6, 12, 24 or 48.
+// bfloat16 runs on tensor cores when c % 8 == 0 and q, k, v and out are
+// 16-byte aligned, else on the FMA body.
 int window_attention_unpacked(const void* q, const void* k, const void* v, const void* bias,
                               void* out, int n, int t, int c, int nhead, int dtype,
                               void* stream) {

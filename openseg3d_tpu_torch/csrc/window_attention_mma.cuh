@@ -1,8 +1,10 @@
 // Tensor-core tile routines for window attention on Hopper (sm_90a): bf16
 // operands, float32 accumulation, warp-level mma.sync (m16n8k16, and
 // m16n8k8 where it saves padding), 16-byte cp.async row staging, and the
-// fragment moves between them. The train kernels (window_attention_train.cu)
-// are built from them; the eval kernels can be built from the same routines.
+// fragment moves between them; and, built from them, the attention forward
+// of one block (attend_rows), which the eval kernel (window_attention.cu)
+// and the train forward (window_attention_train.cu, with dropout) share.
+// The train backward kernels are built from the same routines.
 //
 // Staging. A block copies whole rows of one window (the q, k|v or dO columns
 // of every head, 96-1536 bytes, always a multiple of 16) into shared memory
@@ -337,6 +339,153 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t stride, int row0, i
         *reinterpret_cast<__nv_bfloat162*>(out + d) =
             __floats2bfloat162_rn(acc[nt][2 * r] * scale[r], acc[nt][2 * r + 1] * scale[r]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// blocks
+// ---------------------------------------------------------------------------
+constexpr int kRows = 16;       // a block's own rows (one mma tile)
+constexpr int kMaxHeads = 8;    // one warp per head
+
+// Rows of the streamed side per shared-memory tile, two tiles in flight:
+// about 25-50 KB of k|v rows per tile at the model's widths.
+template <int HD>
+__host__ __device__ constexpr int stream_tile() { return HD <= 12 ? 64 : (HD <= 24 ? 32 : 16); }
+
+// Zero columns [col, col + ncols) of rows [r0, min(r0 + kRows, rows_end))
+// of a bf16 matrix with row stride `stride`: a padding window's block.
+__device__ __forceinline__ void zero_rows(bf16* base, size_t stride, int r0, int rows_end,
+                                          int col, int ncols) {
+  const int nr = min(kRows, rows_end - r0), words = ncols / 2;
+  for (int i = threadIdx.x; i < nr * words; i += blockDim.x) {
+    const int r = i / words, w = i - r * words;
+    reinterpret_cast<uint32_t*>(base + static_cast<size_t>(r0 + r) * stride + col)[w] = 0u;
+  }
+}
+
+// Shared memory of attend_rows for `cols` staged columns: the block's q
+// rows, two tiles of k|v rows and two of biases; a multiple of 16 bytes.
+template <int HD>
+__host__ __device__ constexpr size_t attend_smem(int cols) {
+  return (static_cast<size_t>(kRows) * (cols + kRowPad) +
+          2 * static_cast<size_t>(stream_tile<HD>()) * (2 * cols + kRowPad)) * sizeof(bf16) +
+         2 * stream_tile<HD>() * sizeof(float);
+}
+
+// The softmax weights as they are (no dropout): attend_rows' hooks for the
+// eval kernels. A hook's stage(buf, k0) runs while key tile k0 is staged
+// into buffer buf (before its cp.async group is committed); apply(buf, kc, w)
+// gets a warp's weights exp(s - m) of the 16 keys from kc of that tile
+// (C-fragment layout) before they are rounded to bf16 for P V.
+struct PlainWeights {
+  __device__ __forceinline__ void stage(int, int) {}
+  __device__ __forceinline__ void apply(int, int, float (&)[2][4]) {}
+};
+
+// Stage key rows [k0, k0 + KT) of k and v side by side into buffer buf of
+// kvs ([2][KT][kvp]) and their biases (-inf past T) into bs ([2][KT]) as one
+// cp.async group, with the hook's own staging. Rows past the last 16-key
+// chunk holding a key are never read and not staged.
+template <int KT, class Weights>
+__device__ __forceinline__ void stage_key_tile(bf16* kvs, float* bs, int kvp, const bf16* k,
+                                               const bf16* v, size_t stride, const float* bias,
+                                               int t, int cols, int buf, int k0,
+                                               Weights& weights) {
+  bf16* dst = kvs + buf * KT * kvp;
+  const int nr = min(KT, (t - k0 + 15) / 16 * 16);
+  stage_rows(dst, kvp, k, stride, k0, nr, t, cols);
+  stage_rows(dst + cols, kvp, v, stride, k0, nr, t, cols);
+  for (int j = threadIdx.x; j < KT; j += blockDim.x)
+    bs[buf * KT + j] = k0 + j < t ? bias[k0 + j] : -INFINITY;
+  weights.stage(buf, k0);
+  cp_async_commit();
+}
+
+// softmax(q_h k_h^T + bias) v_h for the 16 query rows [r0, r0 + 16) of one
+// window and the heads of a block, warp w taking the head at staged columns
+// [w HD, (w + 1) HD) (warps past `cols` only help to stage).
+//   q, k, v: row 0 of the window, at the block's first head column, rows
+//   `stride` elements apart, 16-byte aligned; bias: the window's T biases;
+//   cols: the block's columns (heads x HD, a multiple of 8); out: row 0 and
+//   first head column of the window's output, rows out_stride apart.
+// The block stages its q rows once, then streams the window's k and v rows
+// through shared memory in tiles of stream_tile<HD>() rows (cp.async, two
+// tiles in flight) with their biases, keys past T at -inf (so a fully
+// padded window, every bias -1e9, keeps the uniform softmax over exactly its
+// own T keys). Per 16-key chunk a warp computes its 16 x 16 logits with
+// mma_head, adds the bias, folds them into the online softmax (RowSoftmax),
+// rounds the weights to bf16 as the TPU kernel does (attn.astype(v.dtype))
+// and accumulates P V with mma_rows. Stores O / l as bf16; returns each
+// row's softmax max (sm.m) and sum (l).
+template <int HD, class Weights>
+__device__ __forceinline__ void attend_rows(const bf16* q, const bf16* k, const bf16* v,
+                                            size_t stride, const float* bias, int t, int r0,
+                                            int cols, bf16* out, size_t out_stride,
+                                            unsigned char* smem, Weights& weights,
+                                            RowSoftmax& sm, float (&l)[2]) {
+  using H = Head<HD>;
+  constexpr int KT = stream_tile<HD>();
+  const int col = (threadIdx.x >> 5) * HD, tq = lane_t();
+  const bool live = col < cols;
+  const int qp = cols + kRowPad, kvp = 2 * cols + kRowPad;
+  bf16* qs = reinterpret_cast<bf16*>(smem);                       // [kRows][qp]
+  bf16* kvs = qs + kRows * qp;                                    // [2][KT][kvp]: k | v
+  float* bs = reinterpret_cast<float*>(kvs + 2 * KT * kvp);       // [2][KT]
+
+  stage_rows(qs, qp, q, stride, r0, kRows, t, cols);
+  stage_key_tile<KT>(kvs, bs, kvp, k, v, stride, bias, t, cols, 0, 0, weights);
+  const int ntiles = (t + KT - 1) / KT;
+  uint32_t qa[H::kA];
+  float o[H::kN8][4] = {};
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {
+      stage_key_tile<KT>(kvs, bs, kvp, k, v, stride, bias, t, cols, buf ^ 1, (it + 1) * KT,
+                         weights);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (it == 0) load_a<HD>(qa, qs, qp, col);
+      const bf16* kt = kvs + buf * KT * kvp;
+      const float* bt = bs + buf * KT;
+      const int k0 = it * KT;
+#pragma unroll
+      for (int kc = 0; kc < KT; kc += 16) {
+        if (k0 + kc >= t) break;
+        float s[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          uint32_t kb[H::kB];
+          load_b_t<HD>(kb, kt + (kc + 8 * nt) * kvp, kvp, col);
+          mma_head<HD>(s[nt], qa, kb);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] += bt[kc + 8 * nt + 2 * tq + (e & 1)];
+        }
+        float corr[2];
+        sm.update(s, corr);
+#pragma unroll
+        for (int nt = 0; nt < H::kN8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
+        weights.apply(buf, kc, s);
+        uint32_t pa[4];                                           // bf16: the A fragment of P V
+        c_to_a(pa, s[0], s[1]);
+        mma_rows<HD>(o, pa, kt + kc * kvp, kvp, cols + col);
+      }
+    }
+    __syncthreads();
+  }
+
+  l[0] = quad_sum(sm.l[0]);
+  l[1] = quad_sum(sm.l[1]);
+  if (live) {
+    const float scale[2] = {1.f / l[0], 1.f / l[1]};
+    store_rows<HD>(out + col, out_stride, r0, t, o, scale);
   }
 }
 

@@ -52,7 +52,8 @@
 //   - forward: FlashAttention-2's online softmax on the accumulator
 //     fragments; each element knows its (query, key), so it applies keep()
 //     and 1/(1-p) before the weights are rounded to bf16 and become the A
-//     fragment of P V;
+//     fragment of P V (the eval kernel's body, wa_mma::attend_rows, with a
+//     dropout hook);
 //   - dq pass: P from (m, l), dP = dO V^T, dS, then dq += dS K with dS in
 //     bf16;
 //   - dk/dv pass: the transposed logits S^T = K Q^T and dP^T = V dO^T, then
@@ -524,31 +525,16 @@ cudaError_t backward_f32(const float* packed, const float* bias, const int* nw, 
 using wa_mma::bf16;
 using wa_mma::Head;
 using wa_mma::kRowPad;
-
-constexpr int kMmaMaxHeads = 8;             // one warp per head
-constexpr int kRows = 16;                   // a block's own rows (one mma tile)
-
-// Rows of the streamed side per shared-memory tile, two tiles in flight:
-// about 25-50 KB of k|v rows per tile at the model's widths.
-template <int HD>
-__host__ __device__ constexpr int stream_tile() { return HD <= 12 ? 64 : (HD <= 24 ? 32 : 16); }
+using wa_mma::kMaxHeads;
+using wa_mma::kRows;
+using wa_mma::stream_tile;
+using wa_mma::zero_rows;
 
 struct MmaArgs {
   int t, c, nhead, wps;
   uint32_t threshold;
   float inv_keep;
 };
-
-// Zero columns [col, col + ncols) of rows [r0, min(r0 + kRows, rows_end))
-// of a bf16 matrix with row stride `stride`: a padding window's block.
-__device__ __forceinline__ void zero_rows(bf16* base, size_t stride, int r0, int rows_end,
-                                          int col, int ncols) {
-  const int nr = min(kRows, rows_end - r0), words = ncols / 2;
-  for (int i = threadIdx.x; i < nr * words; i += blockDim.x) {
-    const int r = i / words, w = i - r * words;
-    reinterpret_cast<uint32_t*>(base + static_cast<size_t>(r0 + r) * stride + col)[w] = 0u;
-  }
-}
 
 // The dropout hash is mix32(mix32(i * T + j) ^ key(n, h)). Its inner half
 // does not depend on the head, so a block computes it once for its 16 own
@@ -576,9 +562,9 @@ __device__ __forceinline__ bool keep_hashed(uint32_t inner, uint32_t key, uint32
   return threshold == 0u || mix32(inner ^ key) >= threshold;
 }
 
-// Stage one tile of key rows [k0, k0 + KT): their k|v columns and biases
-// (-inf past T) as one cp.async group, and the hash's inner half for the
-// query rows [q0, q0 + 16).
+// Stage one tile of key rows [k0, k0 + KT) for the dq pass: their k|v
+// columns and biases (-inf past T) as one cp.async group, and the hash's
+// inner half for the query rows [q0, q0 + 16).
 template <int KT>
 __device__ __forceinline__ void stage_keys(bf16* kvs, float* bs, uint32_t* ctr, const bf16* win,
                                            const float* bias_win, const MmaArgs& a, int k0,
@@ -591,14 +577,43 @@ __device__ __forceinline__ void stage_keys(bf16* kvs, float* bs, uint32_t* ctr, 
   wa_mma::cp_async_commit();
 }
 
-// forward: O and (m, l) for 16 query rows, all heads
+// attend_rows' hook for the train forward: per key tile the hash's inner
+// half for the block's 16 query rows (cts, [2][kRows][KT + 8]); per chunk
+// the keep decision and 1/(1-p) on each weight before it is rounded to bf16.
+template <int KT>
+struct DropoutWeights {
+  uint32_t* cts;
+  MmaArgs a;
+  int r0;
+  uint32_t key;   // window_head_key of the warp's head
+
+  __device__ __forceinline__ void stage(int buf, int k0) {
+    stage_hash<KT>(cts + buf * kRows * (KT + 8), a, r0, k0, true);
+  }
+
+  __device__ __forceinline__ void apply(int buf, int kc, float (&s)[2][4]) {
+    const uint32_t* ct = cts + buf * kRows * (KT + 8);
+    const int t = wa_mma::lane_t();
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint2 inner = shared_hash(ct, KT + 8, r, kc + 8 * nt + 2 * t);
+        s[nt][2 * r] = keep_hashed(inner.x, key, a.threshold) ? s[nt][2 * r] * a.inv_keep : 0.f;
+        s[nt][2 * r + 1] =
+            keep_hashed(inner.y, key, a.threshold) ? s[nt][2 * r + 1] * a.inv_keep : 0.f;
+      }
+  }
+};
+
+// forward: O and (m, l) for 16 query rows, all heads (the eval kernel's
+// body, wa_mma::attend_rows, with dropout and the statistics)
 template <int HD>
-__global__ void __launch_bounds__(32 * kMmaMaxHeads)
+__global__ void __launch_bounds__(32 * kMaxHeads)
 window_attention_train_fwd_mma_kernel(const bf16* __restrict__ packed,
                                       const float* __restrict__ bias, const int* __restrict__ nw,
                                       const int* __restrict__ seed, bf16* __restrict__ out,
                                       float2* __restrict__ stats, MmaArgs a) {
-  using H = Head<HD>;
   constexpr int KT = stream_tile<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = blockIdx.x, r0 = kRows * blockIdx.y, h = threadIdx.x >> 5;
@@ -616,75 +631,13 @@ window_attention_train_fwd_mma_kernel(const bf16* __restrict__ packed,
     return;
   }
 
-  const int qp = c + kRowPad, kvp = 2 * c + kRowPad;
-  constexpr int cp = KT + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);                     // [kRows][qp]
-  bf16* kvs = qs + kRows * qp;                                  // [2][KT][kvp]
-  float* bs = reinterpret_cast<float*>(kvs + 2 * KT * kvp);     // [2][KT]
-  uint32_t* cts = reinterpret_cast<uint32_t*>(bs + 2 * KT);     // [2][kRows][cp]
-  const float* bias_win = bias + static_cast<size_t>(n) * a.t;
-
-  wa_mma::stage_rows(qs, qp, win, c3, r0, kRows, a.t, c);
-  stage_keys<KT>(kvs, bs, cts, win, bias_win, a, 0, r0);
-  const int ntiles = (a.t + KT - 1) / KT;
-  const uint32_t key = window_head_key(static_cast<uint32_t>(seed[0]), n, a.nhead, h);
-  uint32_t qa[H::kA];
-  float o[H::kN8][4] = {};
+  DropoutWeights<KT> weights{
+      reinterpret_cast<uint32_t*>(smem_raw + wa_mma::attend_smem<HD>(c)), a, r0,
+      window_head_key(static_cast<uint32_t>(seed[0]), n, a.nhead, h)};
   wa_mma::RowSoftmax sm;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < ntiles) {
-      stage_keys<KT>(kvs + (buf ^ 1) * KT * kvp, bs + (buf ^ 1) * KT,
-                     cts + (buf ^ 1) * kRows * cp, win, bias_win, a, (it + 1) * KT, r0);
-      wa_mma::cp_async_wait<1>();
-    } else {
-      wa_mma::cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (it == 0) wa_mma::load_a<HD>(qa, qs, qp, h * HD);
-    const bf16* kt = kvs + buf * KT * kvp;
-    const float* bt = bs + buf * KT;
-    const uint32_t* ct = cts + buf * kRows * cp;
-    const int k0 = it * KT;
-#pragma unroll
-    for (int kc = 0; kc < KT; kc += 16) {
-      if (k0 + kc >= a.t) break;
-      float s[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        uint32_t kb[H::kB];
-        wa_mma::load_b_t<HD>(kb, kt + (kc + 8 * nt) * kvp, kvp, h * HD);
-        wa_mma::mma_head<HD>(s[nt], qa, kb);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] += bt[kc + 8 * nt + 2 * t + (e & 1)];
-      }
-      float corr[2];
-      sm.update(s, corr);
-#pragma unroll
-      for (int nt = 0; nt < H::kN8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
-      // dropout on the weights, then bf16: the A fragment of P V
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const uint2 inner = shared_hash(ct, cp, r, kc + 8 * nt + 2 * t);
-          s[nt][2 * r] = keep_hashed(inner.x, key, a.threshold) ? s[nt][2 * r] * a.inv_keep : 0.f;
-          s[nt][2 * r + 1] =
-              keep_hashed(inner.y, key, a.threshold) ? s[nt][2 * r + 1] * a.inv_keep : 0.f;
-        }
-      uint32_t pa[4];
-      wa_mma::c_to_a(pa, s[0], s[1]);
-      wa_mma::mma_rows<HD>(o, pa, kt + kc * kvp, kvp, c + h * HD);
-    }
-    __syncthreads();
-  }
-
-  const float l[2] = {wa_mma::quad_sum(sm.l[0]), wa_mma::quad_sum(sm.l[1])};
-  const float scale[2] = {1.f / l[0], 1.f / l[1]};
-  wa_mma::store_rows<HD>(out_win + h * HD, c, r0, a.t, o, scale);
+  float l[2];
+  wa_mma::attend_rows<HD>(win, win + c, win + 2 * c, c3, bias + static_cast<size_t>(n) * a.t,
+                          a.t, r0, c, out_win, c, smem_raw, weights, sm, l);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -696,7 +649,7 @@ window_attention_train_fwd_mma_kernel(const bf16* __restrict__ packed,
 
 // backward, pass 1: dq and D for 16 query rows, all heads
 template <int HD>
-__global__ void __launch_bounds__(32 * kMmaMaxHeads)
+__global__ void __launch_bounds__(32 * kMaxHeads)
 window_attention_train_dq_mma_kernel(const bf16* __restrict__ packed,
                                      const float* __restrict__ bias, const int* __restrict__ nw,
                                      const int* __restrict__ seed, const bf16* __restrict__ out,
@@ -815,7 +768,7 @@ window_attention_train_dq_mma_kernel(const bf16* __restrict__ packed,
 
 // backward, pass 2: dk and dv for 16 key rows, all heads
 template <int HD>
-__global__ void __launch_bounds__(32 * kMmaMaxHeads)
+__global__ void __launch_bounds__(32 * kMaxHeads)
 window_attention_train_dkdv_mma_kernel(const bf16* __restrict__ packed,
                                        const float* __restrict__ bias,
                                        const int* __restrict__ nw, const int* __restrict__ seed,
@@ -945,9 +898,7 @@ constexpr size_t hash_smem() { return 2 * kRows * (stream_tile<HD>() + 8) * size
 
 template <int HD>
 size_t fwd_mma_smem(int c) {
-  return (static_cast<size_t>(kRows) * (c + kRowPad) +
-          2 * static_cast<size_t>(stream_tile<HD>()) * (2 * c + kRowPad)) * sizeof(bf16) +
-         2 * stream_tile<HD>() * sizeof(float) + hash_smem<HD>();
+  return wa_mma::attend_smem<HD>(c) + hash_smem<HD>();
 }
 
 template <int HD>
@@ -1003,7 +954,7 @@ cudaError_t backward_mma(const bf16* packed, const float* bias, const int* nw, c
 
 bool valid_shape(int n, int t, int c, int nhead, int wps, int dtype) {
   // bf16 stages 16-byte pieces of C-column rows and runs one warp per head
-  const bool mma_ok = c % 8 == 0 && nhead <= kMmaMaxHeads;
+  const bool mma_ok = c % 8 == 0 && nhead <= kMaxHeads;
   return n > 0 && t > 0 && nhead > 0 && c % nhead == 0 && wps > 0 &&
          (dtype == 0 || (dtype == 1 && mma_ok));
 }

@@ -49,14 +49,17 @@ def library_path(name: str) -> Path:
 def build_all(names=KERNELS) -> dict[str, tuple[Path, float, str]]:
     """Compile csrc/<name>.cu for every name whose library is not built yet,
     all nvcc processes started together. Returns {name: (library path, build
-    seconds, compiler output)}; raises if any build fails."""
+    seconds, compiler output)}, the output of an earlier build (kept beside
+    its library) and 0 seconds where the library was built already; raises if
+    any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     results, running = {}, {}
     t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
-            results[name] = (out, 0.0, '')
+            log = out.with_suffix('.log')
+            results[name] = (out, 0.0, log.read_text() if log.exists() else '')
             continue
         tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
         cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
@@ -70,6 +73,7 @@ def build_all(names=KERNELS) -> dict[str, tuple[Path, float, str]]:
             tmp.unlink(missing_ok=True)
             failed.append(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n{log}')
             continue
+        out.with_suffix('.log').write_text(log)
         os.replace(tmp, out)    # atomic: a concurrent loader never sees half a file
         results[name] = (out, seconds, log)
     if failed:

@@ -5,12 +5,13 @@ Counterpart of ``openseg3d_tpu/ops/attention.py``. Three public functions:
 
 * ``window_attention_packed`` (eval). For a CUDA tensor it launches the
   hand-written kernel ``csrc/window_attention.cu`` (which replaces the TPU
-  kernel ``fused_window_attention_packed`` -> ``_kernel_packed``); for a CPU
+  kernel ``fused_window_attention_packed`` -> ``_kernel_packed``; bfloat16
+  on tensor cores, float32 on FMA units); for a CPU
   tensor it runs ``window_attention_packed_plain``, the einsum with the
   semantics of the JAX package's non-TPU path (``models/swformer.py:167-180``,
   ``reference_window_attention``).
 * ``fused_window_attention`` (the unpacked op: q, k and v as three arrays).
-  For a CUDA tensor it launches the same kernel body through its own entry
+  For a CUDA tensor it launches the same kernels through their own entry
   point (replacing ``fused_window_attention`` -> ``_kernel``); for a CPU
   tensor it runs ``fused_window_attention_plain``. No model calls it.
 * ``window_attention_packed_train`` (training: attention dropout on the
@@ -303,6 +304,7 @@ def _check_mma_args(nhead: int, **tensors):
 def train_forward_bound(plain_out: torch.Tensor, packed: torch.Tensor, nhead: int,
                         drop_rate: float) -> torch.Tensor:
     """Elementwise bound on |bf16 kernel - plain| for the train forward,
+    and at drop_rate 0 for the eval kernels (B1, B4: packed = q|k|v),
     [N, T, C] float32. The plain version keeps the softmax weights in
     float32; the bf16 kernel (as the TPU kernel, ``attn.astype(v.dtype)``)
     rounds each weight, dropout scale included, to bf16 (relative 2^-8)
@@ -412,9 +414,14 @@ def window_attention_packed(packed: torch.Tensor, bias: torch.Tensor,
                             nhead: int, nw: torch.Tensor) -> torch.Tensor:
     """Packed window attention, [N, T, 3C] q|k|v -> [N, T, C].
 
-    On a CUDA tensor: the CUDA kernel (float32 or bfloat16 in, float32 math,
-    output in the input's dtype); ``window_attention_packed.launches`` counts
-    its launches. On a CPU tensor: ``window_attention_packed_plain``."""
+    On a CUDA tensor: the CUDA kernel, output in the input's dtype;
+    ``window_attention_packed.launches`` counts its launches. bfloat16 with
+    C a multiple of 8 and packed 16-byte aligned (every model shape) runs on
+    tensor cores with float32 sums and rounds the softmax weights to bf16
+    before P V, as the TPU kernel does: within ``train_forward_bound(plain,
+    packed, nhead, 0.0)`` of the plain version. float32, and bfloat16 at
+    other widths, runs the FMA body (float32 sums; in float32 within 1e-5
+    of the plain version). On a CPU tensor: ``window_attention_packed_plain``."""
     if packed.is_cuda:
         return _launch_cuda(packed, bias, nhead, nw)
     if packed.device.type == 'cpu':
@@ -430,9 +437,14 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attention_group(T, C, itemsize)`` and T of 16, as for the JAX op;
     head_dim must be one of ``KERNEL_HEAD_DIMS``.
 
-    On a CUDA tensor: the CUDA kernel (float32 math); its launches are
-    counted in ``fused_window_attention.launches``. On a CPU tensor:
-    ``fused_window_attention_plain``."""
+    On a CUDA tensor: the CUDA kernel; its launches are counted in
+    ``fused_window_attention.launches``. bfloat16 with C a multiple of 8 and
+    q, k and v 16-byte aligned runs on tensor cores, within
+    ``train_forward_bound`` at rate 0 of the plain version (the softmax
+    weights rounded to bf16 before P V, as the TPU kernel does); float32
+    runs the FMA body in float32, and so does bfloat16 with C not a multiple
+    of 8 (a head count no model uses) or operands that are not 16-byte
+    aligned. On a CPU tensor: ``fused_window_attention_plain``."""
     _check_unpacked_args(q, k, v, bias, nhead)
     if q.is_cuda:
         return _launch_unpacked(q, k, v, bias, nhead)

@@ -105,6 +105,39 @@ def test_plain_matches_pallas_kernel_and_oracle(t, c):
     assert not mine[1].any()                           # fully padded window
 
 
+@pytest.mark.parametrize('t,c', [(16, 48), (32, 96)])
+def test_eval_plain_bf16_within_bound_of_pallas_kernels(t, c):
+    """In bf16 the Pallas eval kernels (interpret mode), packed (B1) and
+    unpacked (B4), round the softmax weights to bf16 before P V
+    (``attn.astype(v.dtype)``), as the CUDA tensor-core kernels do; the
+    port's plain versions stay within ``train_forward_bound(..., 0.0)`` of
+    them, the bound the card holds B1 and B4 to. Windows without a valid key
+    are left out (the Pallas grouped softmax spreads them over the group)."""
+    rng = np.random.RandomState(5 * t + c)
+    b = 2
+    wps = 2 * attention_group(t, 2 * c, 2)
+    packed, bias, nw = _packed_case(rng, b, wps, t, c, [3, wps - 5])
+    pk16 = torch.from_numpy(packed).bfloat16()
+    bias_t = torch.from_numpy(bias)
+    live = torch.from_numpy((bias == 0).any(axis=1))
+
+    def check(mine, pallas):
+        assert pallas.dtype == jnp.bfloat16 and mine.dtype == torch.bfloat16
+        mine = mine.float()
+        err = (torch.from_numpy(np.asarray(pallas, np.float32)) - mine).abs()
+        assert bool((err <= train_forward_bound(mine, pk16, NHEAD, 0.0))[live].all()), \
+            float(err[live].max())
+
+    x16 = jnp.asarray(pk16.float().numpy()).astype(jnp.bfloat16)
+    check(window_attention_packed_plain(pk16, bias_t, NHEAD, torch.from_numpy(nw)),
+          fused_window_attention_packed(x16, jnp.asarray(bias), nhead=NHEAD, interpret=True,
+                                        nw=jnp.asarray(nw)))
+    q, k, v = (x.contiguous() for x in pk16.split(c, -1))
+    check(fused_window_attention_plain(q, k, v, bias_t, NHEAD),
+          jax_fused_window_attention(x16[..., :c], x16[..., c:2 * c], x16[..., 2 * c:],
+                                     jnp.asarray(bias), nhead=NHEAD, interpret=True))
+
+
 def test_cpu_dispatch_is_plain_and_not_counted():
     rng = np.random.RandomState(0)
     packed, bias, nw = _packed_case(rng, 1, 8, 16, 48, [5])

@@ -9,12 +9,11 @@ skips without one; on the GPU machine run them with
 This file imports no part of the JAX package (flax is not installed there).
 
 Tolerances. Eval and train forward, float32: atol/rtol 1e-5 (the same math
-in another summation order). Eval bfloat16: both versions compute in float32
-from the same bf16 inputs and round the output once to bf16, so they differ
-by at most one bf16 ulp, 2**-7 of the value. Train forward bfloat16: the
-kernel also rounds the softmax weights to bf16 before P V, as the TPU kernel
-does, so ``train_forward_bound``: 2**-7 |plain| + 2**-8 / (1 - p) max|v| of
-the window and head. Train gradients, each of dq, dk and dv against its own
+in another summation order). Eval and train forward, bfloat16: the
+tensor-core kernels round the softmax weights to bf16 before P V, as the TPU
+kernel does, and both sides round the output once to bf16, so
+``train_forward_bound``: 2**-7 |plain| + 2**-8 / (1 - p) max|v| of the
+window and head (p = 0 for the eval kernels). Train gradients, each of dq, dk and dv against its own
 largest magnitude: float32 within 1e-4 (sums of T products); bfloat16 within
 4 bf16 ulps (the kernel rounds P and dS to bf16 before their products, and
 its residual O). The dropout mask is the same hash in both, so these hold at
@@ -46,14 +45,15 @@ def cuda():
     return torch.device('cuda')
 
 
-def _packed_case(device, n, t, c, nw, dtype, seed=0):
+def _packed_case(device, n, t, c, nw, dtype, seed=0, nhead=NHEAD):
     """Model-shaped inputs (see chip_smoke.attention_case): unit q scaled by
-    1/tau, unit k, padded tokens zero with bias -1e9, window 1 fully padded,
-    windows at rank >= nw[sample] padding. Two samples of n // 2 windows."""
+    1/tau, unit k (per head), padded tokens zero with bias -1e9, window 1
+    fully padded, windows at rank >= nw[sample] padding. Two samples of
+    n // 2 windows."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def unit(x):
-        x = x.reshape(n, t, NHEAD, c // NHEAD)
+        x = x.reshape(n, t, nhead, c // nhead)
         return (x / x.norm(dim=-1, keepdim=True)).reshape(n, t, c)
 
     q = unit(torch.randn(n, t, c, generator=gen, device=device))
@@ -71,25 +71,39 @@ def _packed_case(device, n, t, c, nw, dtype, seed=0):
     return packed, bias, torch.tensor(nw, dtype=torch.int32, device=device)
 
 
+def _check_packed(device, t, c, dtype, nhead):
+    packed, bias, nw = _packed_case(device, 48, t, c, [7, 19], dtype, nhead=nhead)
+    before = window_attention_packed.launches
+    got = window_attention_packed(packed, bias, nhead, nw)
+    torch.cuda.synchronize()
+    assert window_attention_packed.launches == before + 1
+    assert got.dtype == dtype and got.shape == (48, t, c)
+    got = got.float()
+    want = window_attention_packed_plain(packed, bias, nhead, nw).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        err = (got - want).abs()
+        assert bool((err <= train_forward_bound(want, packed, nhead, 0.0)).all()), \
+            float(err.max())
+    assert not got[1].any()                            # fully padded window
+    assert not got[7:24].any() and not got[24 + 19:].any()   # windows past nw
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('t,c', [(16, 48), (32, 96), (32, 192), (64, 384), (100, 96),
                                  (800, 48), (800, 384)])
 def test_kernel_matches_plain(cuda, t, c, dtype):
-    packed, bias, nw = _packed_case(cuda, 48, t, c, [7, 19], dtype)
-    before = window_attention_packed.launches
-    got = window_attention_packed(packed, bias, NHEAD, nw)
-    torch.cuda.synchronize()
-    assert window_attention_packed.launches == before + 1
-    assert got.dtype == dtype and got.shape == (48, t, c)
-    got = got.float()
-    want = window_attention_packed_plain(packed, bias, NHEAD, nw).float()
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    else:
-        assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6).all())
-    assert not got[1].any()                            # fully padded window
-    assert not got[7:24].any() and not got[24 + 19:].any()   # windows past nw
+    _check_packed(cuda, t, c, dtype, NHEAD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('nhead,t,c', [(2, 32, 96), (4, 100, 96), (4, 64, 192), (1, 48, 48)])
+def test_kernel_matches_plain_at_other_head_counts(cuda, nhead, t, c, dtype):
+    """Fewer than 8 heads: the tensor-core kernel runs one warp a head."""
+    _check_packed(cuda, t, c, dtype, nhead)
 
 
 @pytest.mark.cuda
@@ -108,28 +122,93 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         window_attention_packed(packed, bias.half(), NHEAD, nw)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('t,c', [(16, 48), (32, 96), (64, 384), (800, 48), (800, 384)])
-def test_unpacked_kernel_matches_plain(cuda, t, c, dtype):
-    """B4: every window computed; window 1 fully padded gives the mean of
-    its own v rows, as the plain version (and the JAX oracle) do."""
+def _unpacked_case(device, t, c, dtype, nhead):
+    """q, k, v for B4 (N = 2 attention groups); window 1 fully padded, its
+    v rows random (padded rows need not be zero)."""
     n = 2 * attention_group(t, c, torch.tensor([], dtype=dtype).element_size())
-    packed, bias, _ = _packed_case(cuda, n, t, c, [n // 2, n // 2], torch.float32)
+    packed, bias, _ = _packed_case(device, n, t, c, [n // 2, n // 2], torch.float32,
+                                   nhead=nhead)
     q, k, v = (x.contiguous().to(dtype) for x in packed.split(c, dim=-1))
-    v[1] = torch.randn(t, c, device=cuda).to(dtype)       # padded rows need not be zero
+    v[1] = torch.randn(t, c, device=device).to(dtype)
+    return q, k, v, bias
+
+
+def _check_unpacked(q, k, v, bias, nhead):
+    """B4 against its plain version; window 1 must give the mean of its own
+    v rows, as the plain version (and the JAX oracle) do."""
+    (n, t, c), dtype = q.shape, q.dtype
     before = fused_window_attention.launches
-    got = fused_window_attention(q, k, v, bias, NHEAD)
+    got = fused_window_attention(q, k, v, bias, nhead)
     torch.cuda.synchronize()
     assert fused_window_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (n, t, c)
     got = got.float()
-    want = fused_window_attention_plain(q, k, v, bias, NHEAD).float()
+    want = fused_window_attention_plain(q, k, v, bias, nhead).float()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
-        assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6).all())
+        err = (got - want).abs()
+        bound = train_forward_bound(want, torch.cat([q, k, v], -1), nhead, 0.0)
+        assert bool((err <= bound).all()), float(err.max())
     torch.testing.assert_close(got[1], v[1].float().mean(0).expand(t, c), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('t,c', [(16, 48), (32, 96), (64, 384), (800, 48), (800, 384)])
+def test_unpacked_kernel_matches_plain(cuda, t, c, dtype):
+    """B4: every window computed, window 1 fully padded."""
+    _check_unpacked(*_unpacked_case(cuda, t, c, dtype, NHEAD), NHEAD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('nhead,t,c', [(4, 64, 96), (16, 32, 96), (12, 48, 72), (16, 64, 384),
+                                       (3, 32, 18)])
+def test_unpacked_kernel_matches_plain_at_other_head_counts(cuda, nhead, t, c, dtype):
+    """More than 8 heads run in groups of 8 (the last group may be smaller:
+    12 = 8 + 4); C = 18 is not a multiple of 8, so bf16 keeps the FMA body."""
+    _check_unpacked(*_unpacked_case(cuda, t, c, dtype, nhead), nhead)
+
+
+def _kernel_names(fn):
+    """Names of the CUDA kernels that fn() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if 'window_attention' in e.name]
+
+
+def _bodies(names):
+    """(tensor-core launches, FMA-body launches) among kernel names."""
+    return (sum('window_attention_mma_kernel' in x for x in names),
+            sum('window_attention_kernel' in x for x in names))
+
+
+@pytest.mark.cuda
+def test_eval_kernel_body_follows_dtype_width_and_alignment(cuda):
+    """bf16 with C % 8 == 0 and 16-byte aligned operands runs the
+    tensor-core kernel; float32, bf16 with C % 8 != 0 and bf16 operands off
+    16-byte alignment run the FMA body; each result matches its plain
+    version."""
+    for dtype, body in ((torch.bfloat16, (1, 0)), (torch.float32, (0, 1))):
+        packed, bias, nw = _packed_case(cuda, 48, 64, 96, [7, 19], dtype)
+        assert _bodies(_kernel_names(
+            lambda: window_attention_packed(packed, bias, NHEAD, nw))) == body, dtype
+        q, k, v, b = _unpacked_case(cuda, 64, 96, dtype, NHEAD)
+        assert _bodies(_kernel_names(
+            lambda: fused_window_attention(q, k, v, b, NHEAD))) == body, dtype
+    q, k, v, b = _unpacked_case(cuda, 32, 18, torch.bfloat16, 3)
+    assert _bodies(_kernel_names(lambda: fused_window_attention(q, k, v, b, 3))) == (0, 1)
+    # q two bytes past a 16-byte boundary (still contiguous)
+    q, k, v, b = _unpacked_case(cuda, 64, 96, torch.bfloat16, NHEAD)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 and q_off.is_contiguous()
+    assert _bodies(_kernel_names(lambda: fused_window_attention(q_off, k, v, b, NHEAD))) == (0, 1)
+    _check_unpacked(q_off, k, v, b, NHEAD)
 
 
 def train_attention_check(packed, bias, seed, nw, nhead, rate, gen):

@@ -171,3 +171,17 @@ def test_library_path_covers_headers(tmp_path, monkeypatch):
         (csrc / 'window_attention_train.cu').read_text() + '\n')
     assert _build.library_path('window_attention_train') != after['window_attention_train']
     assert _build.library_path('nearest_point') == after['nearest_point']
+
+
+def test_build_all_returns_the_kept_log_of_a_built_library(tmp_path, monkeypatch):
+    """A library built earlier is not rebuilt, and its compiler output (the
+    ptxas report chip_smoke.py gates spills on) comes back from the log kept
+    beside it (no nvcc needed: nothing is compiled)."""
+    from openseg3d_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path)
+    lib = _build.library_path('nearest_point')
+    assert lib.parent == tmp_path
+    lib.write_bytes(b'')
+    lib.with_suffix('.log').write_text("ptxas info    : Used 40 registers\n")
+    assert _build.build_all(('nearest_point',)) == {
+        'nearest_point': (lib, 0.0, "ptxas info    : Used 40 registers\n")}

@@ -28,6 +28,13 @@ counters on the CPU (plain versions only, nothing counted).
 """
 
 import functools
+# The standard library's profiler module, imported while this file is
+# collected: the first torch optimizer imports torch._dynamo, which imports
+# cProfile and through it `profile`; tests/test_tools_and_utils.py puts the
+# repository's tools/ (which holds a profile.py) at the front of sys.path
+# while it runs, and a test file run after it in the same worker would
+# otherwise get that script instead.
+import profile  # noqa: F401
 
 import flax.linen as fnn
 import jax
