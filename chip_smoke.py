@@ -33,10 +33,16 @@ Phases (each asserts or raises; nothing is caught):
      largest magnitude; windows past nw zero, gradients finite; then per
      shape in bf16: B2f and B2b at rate 0 and 0.1, SDPA with dropout 0.1,
      SDPA's backward (live windows) and both bounds, and the plain version;
-  3c. 1-NN vs plain: the B3 kernel against its plain version on the real
+  3c. 1-NN vs plain: the B3 kernels (a search over point splits, then a
+     combine of the partials) against their plain version on the real
      frame's voxel centres (the stage-4 aux centres against the
-     full-resolution ones, the train step's label transfer) and on random
-     points: indices equal; times both;
+     full-resolution ones, the train step's label transfer), on random
+     points and on the split search's edge cases (tests/test_torch_cuda.py:
+     ties straddling every split boundary, P and Q off the split and tile
+     sizes, an all-invalid sample, B = 2 with different valid counts):
+     indices equal; one search and one combine kernel per call, by name
+     under the profiler; B3's device ms beside its bound, the issue floor of
+     its _rn arithmetic, cdist + argmin and the plain version;
   3d. unpacked attention vs plain: the B4 kernel (fused_window_attention,
      q, k and v as three arrays, every window computed) against its plain
      version at the same 23 (T, C) plus the JAX test's (800, 384), N the
@@ -62,11 +68,17 @@ Phases (each asserts or raises; nothing is caught):
      OHEM-CE + Lovasz losses on point, voxel and 0.4x aux logits, attention
      dropout 0.1, drop path, head dropout) on the same frame; checks the
      launches of one step (B2f and B2b once per attention level and layer,
-     B3 once), a finite loss, finite gradients, moved parameters and
-     BatchNorm statistics; under the profiler the bf16 step runs B2f and B2b
-     as the tensor-core kernels, never the float32 FMA bodies; takes the
-     same first step through the plain versions and compares loss and
-     gradients; times 1 + 5 steps; profiles one step of each;
+     B3 once) and its gather-only backwards (one per sparse conv, two per
+     encoder layer for permute_rows), a finite loss, finite gradients,
+     moved parameters and BatchNorm statistics; under the profiler the bf16
+     step runs B2f and B2b as the tensor-core kernels, never the float32 FMA
+     bodies, and at most one bf16 index_add_ (the devoxelize gather's
+     backward); takes the same first step through the plain versions and
+     compares loss and gradients; takes it once more and prints whether the
+     gradients are bit-equal (no --deterministic); times 1 + 5 steps, with
+     the peak memory; profiles one step of each; then one sparse conv of
+     each kind (subm, strided, inverse) at full size: its float32 dW from
+     bf16 inputs within 1e-5 of a float32 product of the same inputs;
   5. small reference: a tiny float32 model on the GPU against the same model
      on the CPU (whose path tests/test_torch_segformer.py and
      tests/test_torch_train.py hold against the JAX package): the eval
@@ -92,11 +104,13 @@ Phases (each asserts or raises; nothing is caught):
      0.15 (chance is 1/22), every kernel of the train and eval paths
      launched; (b) resume on configs/synthetic_smoke.yaml: train 2 epochs,
      delete epoch_2.pt, resume with --auto_resume, both with --deterministic
-     (without it the float32 atomics of index_add_ reorder sums, and the
-     Adam moments of leaves whose true gradient is zero, conv biases ahead
-     of BatchNorm, hold only that rounding noise): the new epoch_2.pt has the
+     (without it the atomics of the devoxelize gather's index_add_
+     backward reorder sums, and the Adam moments of leaves whose true
+     gradient is zero, conv biases ahead of BatchNorm, hold only that
+     rounding noise): the new epoch_2.pt has the
      same step and update counts and parameters and optimizer state within
-     1e-6 of the first (relative to each tensor's largest magnitude); (c) 2 train steps through WaymoDataset on a tree in
+     1e-6 of the first (relative to each tensor's largest magnitude); (c)
+     2 train steps through WaymoDataset on a tree in
      the offline parser's format (tools/rehearsal.make_tree), instance paste
      and PolarMix on; (d) tools.eval on (a)'s checkpoints, without TTA on 4
      frames and with the 36-variant host TTA on 1 frame: finite mIoUs;
@@ -155,15 +169,20 @@ def device_ms(fn, iters: int = 5) -> float:
     is not counted: a call whose host side (autograd's backward, say)
     outlasts its kernels is timed by its kernels. A trace that holds no
     device event at all (the profiler sometimes delivers none for a short
-    run) is taken again; three such traces raise."""
+    run) is taken again; after three such traces the call is timed by CUDA
+    events instead (cuda_ms), and a line says so."""
+    import torch
     fn()
     for _ in range(3):
+        torch.cuda.synchronize()
         events, _ = trace(lambda: [fn() for _ in range(iters)])
         durs = [e['dur'] for e in events
                 if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
         if durs:
             return sum(durs) / 1e3 / iters
-    raise RuntimeError('three traces of the call held no device event')
+    ms = cuda_ms(fn, iters)
+    print(f'  (three traces held no device event: {ms:.4f} ms by CUDA events)', flush=True)
+    return ms
 
 
 def attention_case(gen, n, t, c, nw, dtype, nhead=8):
@@ -390,14 +409,17 @@ def check_train_kernels(levels, channels):
     return max_fwd32, max_grad32
 
 
-def check_nearest_point(cfg, spec, batch):
-    """Phase 3c. Returns (queries, points, kernel ms, plain ms) of the real
-    frame's label transfer."""
+def check_nearest_point(cfg, spec, batch, smi):
+    """Phase 3c. Returns B3's yardsticks on the real frame's label transfer
+    (knn_yardstick). Prints the kernel's device ms beside its bound, the
+    issue floor of its _rn arithmetic and cdist + argmin."""
     import torch
     from openseg3d_tpu_torch.models.backbones.sparse_unet import build_unet_plans
-    from openseg3d_tpu_torch.ops.knn import nearest_point, nearest_point_plain
+    from openseg3d_tpu_torch.ops.knn import nearest_point, nearest_point_plain, split_plan
     from openseg3d_tpu_torch.ops.sparse_conv import SparseTensor
     from openseg3d_tpu_torch.utils.pointops import get_voxel_centers
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    from test_torch_cuda import nearest_point_edge_cases
     with torch.no_grad():
         plans = build_unet_plans(SparseTensor(None, batch['voxel_coords'], spec.spatial_shape),
                                  spec.capacities)
@@ -419,11 +441,32 @@ def check_nearest_point(cfg, spec, batch):
     p = torch.rand(1, src.shape[1], 3, generator=gen, device='cuda') * 100 - 50
     pv = torch.rand(1, src.shape[1], generator=gen, device='cuda') > 0.2
     assert torch.equal(nearest_point(q, p, pv), nearest_point_plain(q, p, pv))
-    k_ms = cuda_ms(lambda: nearest_point(dst, src, valid), 5)
-    p_ms = cuda_ms(lambda: nearest_point_plain(dst, src, valid), 2)
-    print(f'1-NN random points: indices equal; frame shapes: kernel {k_ms:.4f} ms, plain '
-          f'{p_ms:.4f} ms', flush=True)
-    return dst.shape[1], src.shape[1], k_ms, p_ms
+    print('1-NN random points: indices equal', flush=True)
+    # the split search's edge cases (tests/test_torch_cuda.py): bit-equal
+    for name, eq, ep, ev in nearest_point_edge_cases(torch.device('cuda'), gen):
+        got_e, want_e = nearest_point(eq, ep, ev), nearest_point_plain(eq, ep, ev)
+        torch.cuda.synchronize()
+        assert torch.equal(got_e, want_e), (name, int((got_e != want_e).sum()))
+        print(f'1-NN {name} (B {eq.shape[0]}, Q {eq.shape[1]}, P {ep.shape[1]}, split plan '
+              f'{split_plan(eq.shape[0], eq.shape[1], ep.shape[1], eq.device)}): indices equal',
+              flush=True)
+
+    # the frame's call: one search and one combine kernel, matched by name
+    events, _ = trace(lambda: nearest_point(dst, src, valid))
+    search, combine = (named_kernels(events, n) for n in ('nearest_point_kernel',
+                                                          'nearest_point_combine_kernel'))
+    assert search[1] == 1 and combine[1] == 1, (search, combine)
+    k_ms = device_ms(lambda: nearest_point(dst, src, valid), 10)
+    p_ms = device_ms(lambda: nearest_point_plain(dst, src, valid), 2)
+    y = knn_yardstick(dst[0], src[0], valid[0])
+    splits, span = split_plan(1, dst.shape[1], src.shape[1], dst.device)
+    print(f'B3 on the frame ({splits} splits of {span} points): {k_ms:.4f} ms of device time '
+          f'(search {search[0]:.4f}, combine {combine[0]:.4f} in one profiled call); bound '
+          f'{y["bound_ms"]:.4f} ms ({y["bound_by"]}); issue floor of the _rn arithmetic '
+          f'{y["floor_ms"]:.4f} ms (8 unfused operations a pair, one FMA slot each), '
+          f'{y["floor_ms"] * 11 / 8:.4f} ms with the compare and two selects; cdist + argmin '
+          f'{y["library_ms"]:.4f} ms; plain {p_ms:.4f} ms; on {smi}', flush=True)
+    return y
 
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): the least time of a
@@ -607,23 +650,16 @@ def attention_yardsticks(seen):
     return out
 
 
-def knn_yardstick(cfg, spec, batch, chunk=4096):
+def knn_yardstick(dst, src, valid, chunk=4096):
     """B3's library ms (torch.cdist over query chunks, invalid points at
-    +inf, argmin; ties may resolve otherwise) and bound on the frame: every
-    aux centre against the valid voxel centres, 8 float32 operations a pair
-    (3 differences, 3 squares, 2 sums)."""
+    +inf, argmin; ties may resolve otherwise), bound and issue floor for
+    queries dst [Q, 3] against points src [P, 3] (valid [P]): 8 float32
+    operations a pair (3 differences, 3 squares, 2 sums) over the valid
+    points, at 67 TFLOP/s for the bound; for the floor each of the 8 takes a
+    whole FMA issue slot (the _rn rule contracts none into an FMA, and the
+    peak counts an FMA as two operations), so the floor is twice the
+    bound's operation time."""
     import torch
-    from openseg3d_tpu_torch.models.backbones.sparse_unet import build_unet_plans
-    from openseg3d_tpu_torch.ops.sparse_conv import SparseTensor
-    from openseg3d_tpu_torch.utils.pointops import get_voxel_centers
-    with torch.no_grad():
-        plans = build_unet_plans(SparseTensor(None, batch['voxel_coords'], spec.spatial_shape),
-                                 spec.capacities)
-        src = get_voxel_centers(batch['voxel_coords'], 1.0, spec.voxel_size,
-                                spec.point_cloud_range)[0]
-        dst = get_voxel_centers(plans.coords[3], 8.0, spec.voxel_size,
-                                spec.point_cloud_range)[0]
-    valid = batch['voxel_mask'][0]
 
     def cdist_argmin():
         out = []
@@ -635,7 +671,8 @@ def knn_yardstick(cfg, spec, batch, chunk=4096):
     lib_ms = device_ms(cdist_argmin, 3)
     q, p, pv = dst.shape[0], src.shape[0], int(valid.sum())
     bms, by = bound(q * 12 + p * 13 + q * 4, 8.0 * q * pv, FP32_FLOPS_PER_S)
-    return dict(library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    floor_ms = 2 * 8.0 * q * pv / FP32_FLOPS_PER_S * 1e3
+    return dict(library_ms=lib_ms, bound_ms=bms, bound_by=by, floor_ms=floor_ms)
 
 
 def frame_batch(cfg, device):
@@ -704,9 +741,11 @@ def range_kernels(events, name):
     return len(ranges), sum(durs) / 1e3, len(durs)
 
 
-def named_kernels(events, name):
-    """(device ms, count) of the kernels whose name contains `name`."""
-    durs = [e['dur'] for e in events if e.get('cat') == 'kernel' and name in e['name']]
+def named_kernels(events, *names):
+    """(device ms, count) of the kernels whose name contains every one of
+    `names`."""
+    durs = [e['dur'] for e in events
+            if e.get('cat') == 'kernel' and all(n in e['name'] for n in names)]
     return sum(durs) / 1e3, len(durs)
 
 
@@ -862,14 +901,62 @@ def plain_train_cores():
             mock.patch.object(knn, 'nearest_point', plain_knn))
 
 
+def check_conv_weight_grads(spec, batch):
+    """Phase 4b: one sparse conv of each kind at full size on the frame's
+    rulebooks, in the production dtypes (bf16 features and cotangent,
+    float32 weights, compute dtype bf16): the subm conv of stage 2 (96 ->
+    96, UpBlock_2's), the strided conv into stage 2 (48 -> 96,
+    ConvModule_1) and the inverse conv from stage 3 into stage 2 (192 ->
+    96, UpBlock_1's). The backward's float32 dW against a float32 product
+    of the same bf16 inputs gathered through the forward rulebook (not the
+    transpose the backward reads), within 1e-5 of max|dW|: both sum the
+    same exact products in float32, in another order. Returns {kind:
+    max |dW - reference| / max |reference|}."""
+    import torch
+    from openseg3d_tpu_torch.models.backbones.sparse_unet import build_unet_plans
+    from openseg3d_tpu_torch.ops.scatter import take_rows_or_zero
+    from openseg3d_tpu_torch.ops.sparse_conv import SparseTensor, apply_sparse_conv
+    with torch.no_grad():
+        plans = build_unet_plans(SparseTensor(None, batch['voxel_coords'], spec.spatial_shape),
+                                 spec.capacities)
+    m1, m2, m3, _ = plans.masks
+    dev = m1.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs = {}
+    for kind, rb, in_mask, out_mask, cin, cout in (
+            ('subm', plans.subm[1], m2, m2, 96, 96),
+            ('strided', plans.down[0].rule, m1, m2, 48, 96),
+            ('inverse', plans.down[1].inv_rule, m3, m2, 192, 96)):
+        b, k3, vo = rb.in_idx.shape
+        x = torch.randn(b, in_mask.shape[1], cin, generator=gen, device=dev)
+        x = torch.where(in_mask[..., None], x, 0).bfloat16()
+        w = torch.randn(k3, cin, cout, generator=gen, device=dev) / (k3 * cin) ** 0.5
+        w.requires_grad_(True)
+        g = torch.randn(b, vo, cout, generator=gen, device=dev).bfloat16()
+        apply_sparse_conv(x, rb, w, out_mask, torch.bfloat16).backward(g)
+        with torch.no_grad():
+            gm = torch.where(out_mask[..., None], g, 0).float().reshape(-1, cout)
+            ref = torch.stack([take_rows_or_zero(x.float(), rb.in_idx[:, k]).reshape(-1, cin).t()
+                               @ gm for k in range(k3)])
+        assert w.grad.dtype == torch.float32
+        errs[kind] = float((w.grad - ref).abs().max()) / float(ref.abs().max())
+    print(f'full-size bf16 conv dW against a float32 product of the same inputs (max abs error '
+          f'/ max |dW|): {errs}', flush=True)
+    assert all(e <= 1e-5 for e in errs.values()), errs
+    return errs
+
+
 def run_train_slice(cfg, batch, expected_attention):
     """Phase 4b. Returns a dict of the results."""
     import torch
     from openseg3d_tpu_torch.engine import TrainState, build_segmentor, make_train_step
     from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
+    from openseg3d_tpu_torch.models.sparse_modules import SparseConv
     from openseg3d_tpu_torch.ops.attention import (window_attention_train_backward,
                                                    window_attention_train_forward)
     from openseg3d_tpu_torch.ops.knn import nearest_point
+    from openseg3d_tpu_torch.ops.sparse_conv import apply_sparse_conv
+    from openseg3d_tpu_torch.ops.window import permute_rows
     from openseg3d_tpu_torch.weights import init_weights
 
     device = batch['points'].device
@@ -878,6 +965,10 @@ def run_train_slice(cfg, batch, expected_attention):
     initial = copy.deepcopy(model.state_dict())
     step = make_train_step(cfg, spec)
     counters = (window_attention_train_forward, window_attention_train_backward, nearest_point)
+    # the gather-only backwards: one per conv, two per encoder layer
+    backwards = (apply_sparse_conv, permute_rows)
+    expected_backwards = [sum(isinstance(m, SparseConv) for m in model.modules()),
+                          2 * sum(spec.depths)]
 
     def fresh_state():
         model.load_state_dict(initial)
@@ -893,13 +984,19 @@ def run_train_slice(cfg, batch, expected_attention):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    for f in backwards:
+        f.backwards = 0
     state, m = step(state, batch, seed=0)
     torch.cuda.synchronize()
     launches = [c.launches for c in counters]
+    n_backwards = [f.backwards for f in backwards]
     print(f'train step launches: B2 forward {launches[0]}, B2 backward {launches[1]}, '
           f'B3 {launches[2]} (config implies {expected_attention}, {expected_attention}, 1); '
+          f'gather-only backwards: sparse conv {n_backwards[0]}, permute_rows {n_backwards[1]} '
+          f'(the model implies {expected_backwards[0]}, {expected_backwards[1]}); '
           f'peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
     assert launches == [expected_attention, expected_attention, 1], launches
+    assert n_backwards == expected_backwards, (n_backwards, expected_backwards)
     loss, g_kernel = float(m['loss']), grads()
     assert m['grads_finite'] and torch.isfinite(m['loss']), m
     moved = {k: float((v.float() - initial[k].float()).abs().max())
@@ -935,6 +1032,14 @@ def run_train_slice(cfg, batch, expected_attention):
           f'{statistics.median(rel.values()):.4g}, worst {worst}', flush=True)
     assert loss_rel <= 0.02 and grad_rel <= 0.1, (loss_rel, grad_rel)
 
+    # the same first step again, without --deterministic: printed, not a gate
+    state = fresh_state()
+    state, _ = step(state, batch, seed=0)
+    again = grads()
+    differ = [k for k in g_kernel if not torch.equal(g_kernel[k], again[k])]
+    print(f'two identical first steps: {len(g_kernel) - len(differ)}/{len(g_kernel)} gradient '
+          f'leaves bit-equal; differing: {differ[:6]}', flush=True)
+
     # timing: kernel path, one warm-up step then 5 timed ones
     state = fresh_state()
     state, _ = step(state, batch, seed=1)
@@ -959,9 +1064,12 @@ def run_train_slice(cfg, batch, expected_attention):
                 b2b=tuple(map(sum, zip(
                     named_kernels(events, 'window_attention_train_dq_mma_kernel'),
                     named_kernels(events, 'window_attention_train_dkdv_mma_kernel')))),
-                b3=named_kernels(events, 'nearest_point_kernel'),
+                b3=tuple(map(sum, zip(named_kernels(events, 'nearest_point_kernel'),
+                                      named_kernels(events, 'nearest_point_combine_kernel')))),
                 fma=sum(named_kernels(events, f'window_attention_train_{k}_kernel')[1]
-                        for k in ('fwd', 'dq', 'dkdv')))
+                        for k in ('fwd', 'dq', 'dkdv')),
+                index_add_bf16=named_kernels(events, 'indexFuncLargeIndex', 'BFloat16'),
+                index_add=named_kernels(events, 'indexFunc'))
     print('kernel step, kernels with the most device time (name, ms, count):', flush=True)
     for row in top_kernels(events):
         print(f'  {row}', flush=True)
@@ -973,15 +1081,18 @@ def run_train_slice(cfg, batch, expected_attention):
                       **{k: (ms, n) for k, (_, ms, n) in ranges.items()})
     print(f'kernel step under the profiler (ms, kernels): {prof}', flush=True)
     print(f'plain step under the profiler (ms, kernels): {plain_prof}', flush=True)
-    assert prof['b2f'][1] == expected_attention and prof['b3'][1] == 1, prof
+    assert prof['b2f'][1] == expected_attention, prof
+    assert prof['b3'][1] == 2, prof                                 # search + combine
     assert prof['b2b'][1] == 2 * expected_attention, prof           # dq + dk/dv passes
     assert prof['fma'] == 0, prof
+    # the gathers' backwards scatter no more: at most the devoxelize gather's
+    assert prof['index_add_bf16'][1] <= 1, prof
     assert [ranges[k][0] for k in ('b2f', 'b2b', 'b3')] == \
         [expected_attention, expected_attention, 1], ranges
-    return dict(launches=launches, loss=loss, plain_loss=plain_loss, loss_rel=loss_rel,
-                grad_rel=grad_rel, step_ms=statistics.median(times),
-                plain_step_ms=statistics.median(plain_times), peak=peak, prof=prof,
-                plain_prof=plain_prof)
+    return dict(launches=launches, backwards=n_backwards, loss=loss, plain_loss=plain_loss,
+                loss_rel=loss_rel, grad_rel=grad_rel, repeat_differ=len(differ),
+                step_ms=statistics.median(times), plain_step_ms=statistics.median(plain_times),
+                peak=peak, prof=prof, plain_prof=plain_prof)
 
 
 def check_small_reference(device):
@@ -1297,7 +1408,7 @@ def main() -> int:
 
     # 3c. 1-NN vs plain on the frame's voxel centres
     batch, _ = frame_batch(cfg, device)
-    knn_q, knn_p, knn_ms, knn_plain_ms = check_nearest_point(cfg, spec, batch)
+    b3_yard = check_nearest_point(cfg, spec, batch, smi)
 
     # 3d. the unpacked attention (B4) vs plain, and its own path
     t0 = time.perf_counter()
@@ -1324,8 +1435,11 @@ def main() -> int:
     tr = run_train_slice(cfg, batch, expected)
     print(f'train slice: median step {tr["step_ms"]:.2f} ms '
           f'({N_POINTS / tr["step_ms"] / 1e3:.3f} Mpoints/s), through the plain versions '
-          f'{tr["plain_step_ms"]:.2f} ms, peak memory {tr["peak"] / 2**30:.2f} GiB, on {smi}',
-          flush=True)
+          f'{tr["plain_step_ms"]:.2f} ms, peak memory {tr["peak"] / 2**30:.2f} GiB, '
+          f'gather-only backwards {tr["backwards"]} (conv, permute_rows), bf16 index_add '
+          f'{tr["prof"]["index_add_bf16"]}, all index kernels {tr["prof"]["index_add"]} (ms, '
+          f'launches), {tr["repeat_differ"]} gradient leaves differ between two identical '
+          f'steps, on {smi}', flush=True)
     for name, p, med in (('kernel', tr['prof'], tr['step_ms']),
                          ('plain', tr['plain_prof'], tr['plain_step_ms'])):
         print(f'{name} train step, profiled: B2 forward {p["b2f"][0]:.3f} ms, B2 backward '
@@ -1333,13 +1447,14 @@ def main() -> int:
               f'{p["busy_ms"]:.3f} ms = {p["busy_ms"] / p["wall_ms"]:.3f} of its '
               f'{p["wall_ms"]:.3f} ms wall time (and {p["busy_ms"] / med:.3f} of the '
               f'unprofiled median)', flush=True)
+    check_conv_weight_grads(spec, batch)
 
     # 5. small references against the CPU path
     check_small_reference(device)
     check_small_train_reference(device)
 
     # 6. yardsticks: one library call for the same function, and the bound
-    yard['b3'] = knn_yardstick(cfg, spec, batch)
+    yard['b3'] = b3_yard
     yard['b4'] = {k: b4[k] for k in ('library_ms', 'bound_ms', 'bound_by')}
     for name, y in yard.items():
         print(f'{name}: library {y["library_ms"]:.3f} ms, bound {y["bound_ms"]:.4f} ms '

@@ -3,9 +3,10 @@
 Counterpart of ``openseg3d_tpu/models/sparse_modules.py``. Every module takes
 precomputed rulebooks: structure is built once per stage and reused by every
 conv at that stage. Training follows ``nn.Module.training`` (batch statistics
-in every MaskedBatchNorm). The JAX package rematerialises the submanifold
-gather-GEMM in the backward (``jax.checkpoint``, a memory choice); here
-autograd keeps the gathered neighbour rows. The squeeze-excite and
+in every MaskedBatchNorm). Every conv runs ``ops.sparse_conv``'s
+autograd Function, which, like the JAX package's custom VJPs, keeps only the
+conv's inputs for the backward, never the gathered neighbour rows, and
+gathers the cotangent through the transposed rulebook. The squeeze-excite and
 spatial-attention options of SparseBasicBlock belong to SPNet and wait for
 it.
 """

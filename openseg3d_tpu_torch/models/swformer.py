@@ -124,7 +124,7 @@ class WindowAttention(nn.Module):
         q = (_head_l2norm(qk[..., :c], h) * scale_c).to(dt)
         k = _head_l2norm(qk[..., c:], h).to(dt)
 
-        big = permute_rows(torch.cat([q, k, val], dim=-1), inv_idx)  # [B, S, 3C]
+        big = permute_rows(torch.cat([q, k, val], dim=-1), inv_idx, comb)  # [B, S, 3C]
         offs = level_offsets(self.levels)
         if self.training:
             # one int32 seed per level for the attention dropout
@@ -143,7 +143,7 @@ class WindowAttention(nn.Module):
             else:
                 o3 = window_attention_packed(seg, bias2, h, nw)
             outs.append(o3.reshape(b, w * t, c))
-        out = permute_rows(torch.cat(outs, dim=1), comb)             # [B, V, C]
+        out = permute_rows(torch.cat(outs, dim=1), comb, inv_idx)    # [B, V, C]
         return dense(self.out_proj, out.to(dt))
 
 

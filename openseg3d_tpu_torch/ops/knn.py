@@ -50,6 +50,28 @@ def nearest_point_plain(queries: torch.Tensor, points: torch.Tensor,
     return out
 
 
+def _check(lib, rc, what):
+    if rc != 0:
+        err = lib.nearest_point_error_string
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f'{what} failed: {err(rc).decode()} ({rc})')
+
+
+def split_plan(b: int, q: int, p: int, device) -> tuple[int, int]:
+    """(splits, span): how the CUDA kernel divides each sample's p points
+    over blocks on `device`, ranges of span points (the last one shorter),
+    each written to its own partial; a combine pass takes the nearest over
+    them in ascending order."""
+    lib = _build.load('nearest_point')
+    fn = lib.nearest_point_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    splits, span = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _check(lib, fn(b, q, p, ctypes.byref(splits), ctypes.byref(span)), 'nearest_point_plan')
+    return splits.value, span.value
+
+
 def _launch_cuda(queries, points, valid):
     b, q, _ = queries.shape
     p = points.shape[1]
@@ -63,18 +85,18 @@ def _launch_cuda(queries, points, valid):
     out = torch.empty((b, q), dtype=torch.int32, device=queries.device)
     if b == 0 or q == 0:
         return out
+    splits, span = split_plan(b, q, p, queries.device)
+    part_dist = torch.empty((b, splits, q), dtype=torch.float32, device=queries.device)
+    part_idx = torch.empty((b, splits, q), dtype=torch.int32, device=queries.device)
     lib = _build.load('nearest_point')
     fn = lib.nearest_point
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream(queries.device).cuda_stream
-        rc = fn(queries.data_ptr(), points.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                b, q, p, stream)
-    if rc != 0:
-        err = lib.nearest_point_error_string
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f'nearest_point launch failed: {err(rc).decode()} ({rc})')
+        rc = fn(queries.data_ptr(), points.data_ptr(), valid.data_ptr(), part_dist.data_ptr(),
+                part_idx.data_ptr(), out.data_ptr(), b, q, p, splits, span, stream)
+    _check(lib, rc, 'nearest_point launch')
     nearest_point.launches += 1
     return out
 
@@ -83,9 +105,9 @@ def nearest_point(queries: torch.Tensor, points: torch.Tensor,
                   valid: torch.Tensor) -> torch.Tensor:
     """Index of the nearest valid point for every query: queries [B, Q, 3],
     points [B, P, 3] float32, valid [B, P] bool -> int32 [B, Q], -1 where
-    no valid point exists. On CUDA tensors: the CUDA kernel
-    (``nearest_point.launches`` counts its launches); on CPU tensors:
-    ``nearest_point_plain``."""
+    no valid point exists. On CUDA tensors: the CUDA kernels, a search over
+    point splits and the combine of its partials (``nearest_point.launches``
+    counts the calls); on CPU tensors: ``nearest_point_plain``."""
     if queries.is_cuda:
         return _launch_cuda(queries, points, valid)
     if queries.device.type == 'cpu':

@@ -1,4 +1,4 @@
-"""Submanifold / strided / inverse sparse 3D convolution, forward only.
+"""Submanifold / strided / inverse sparse 3D convolution.
 
 Counterpart of ``openseg3d_tpu/ops/sparse_conv.py``. The layout is the same:
 batched ``[B, V, ...]`` with per-sample capacity V, padding rows have
@@ -16,7 +16,12 @@ What differs from the JAX package, and why the results are the same:
   * The inverse conv's candidate-compact pair structure becomes the dense
     transposed rulebook, scattered once from the strided conv's rule
     (``inv[k, rule[k, o]] = o``): the same pairs, read from the fine side.
-  * The custom VJPs wait for the train slice.
+  * The backwards of the planar subm, strided and inverse custom VJPs
+    (``:1105-1150``, ``:687-724``, ``:631-653``) all gather the cotangent
+    through the transposed pairs. Here one ``torch.autograd.Function``
+    does the same through the transpose each rulebook carries (the subm
+    mirror, or the downsample plan's other rule), with the reference's
+    float32 accumulation and float32 weight gradient.
 
 Keys are int32 with the JAX package's sentinel (``linearize`` refuses grids
 that overflow it); they are cast to int64 only to index.
@@ -50,8 +55,14 @@ class SparseTensor:
 
 class Rulebook(NamedTuple):
     """in_idx [B, K^3, V_out] int32: the input row that contributes to output
-    o at kernel offset k (-1 = none)."""
+    o at kernel offset k (-1 = none). transpose [B, K^3, V_in] int32: the
+    same pairs from the input side, transpose[k, u] = o iff in_idx[k, o] = u
+    (-1 = none); the backward gathers through it, and a rulebook without one
+    has no backward. submanifold: outputs are the inputs, and the backward
+    masks dx by the output mask as the reference's subm VJP does."""
     in_idx: torch.Tensor
+    transpose: torch.Tensor | None = None
+    submanifold: bool = False
 
 
 class DownsamplePlan(NamedTuple):
@@ -110,7 +121,9 @@ def build_subm_rulebook(st: SparseTensor, kernel_size: int = 3) -> Rulebook:
     """Submanifold rulebook: outputs are the inputs; in_idx[b, k, o] is the
     row of voxel o's neighbour at raster offset k. Counterpart of
     ``build_planar_k3_direct`` (``ops/sparse_conv.py:876-1007``), which gives
-    the same table for k=3 over key-sorted coords."""
+    the same table for k=3 over key-sorted coords. Its transpose is the
+    mirror (``_subm_conv_bwd``): o reads u at offset k iff u reads o at
+    offset K^3-1-k, whose offset is the negation of k's."""
     coords = st.coords
     b, v, _ = coords.shape
     valid = coords[..., 0] >= 0
@@ -119,7 +132,8 @@ def build_subm_rulebook(st: SparseTensor, kernel_size: int = 3) -> Rulebook:
     nb = coords[:, None, :, :] + offs[None, :, None, :]              # [B, K3, V, 3]
     q = linearize(nb, st.spatial_shape, valid=valid[:, None, :])
     k3 = offs.shape[0]
-    return Rulebook(in_idx=sort_match(keys, q.reshape(b, k3 * v)).reshape(b, k3, v))
+    in_idx = sort_match(keys, q.reshape(b, k3 * v)).reshape(b, k3, v)
+    return Rulebook(in_idx=in_idx, transpose=in_idx.flip(1), submanifold=True)
 
 
 def downsample_shape(spatial_shape, kernel_size: int, stride: int, padding: int):
@@ -177,9 +191,96 @@ def build_downsample(st: SparseTensor, out_capacity: int, kernel_size: int = 3,
     inv.scatter_(1, torch.where(rule >= 0, k_idx * v + rule, k3 * v).reshape(b, -1),
                  o_idx.reshape(b, -1).int())
     inv = inv[:, :-1].reshape(b, k3, v)
-    return DownsamplePlan(out_coords=out_coords, rule=Rulebook(rule),
-                          inv_rule=Rulebook(inv), out_shape=out_shape,
+    # each rule is the other's transpose: the inverse conv's backward reads
+    # the strided rule, as the reference's reads fwd_idx
+    return DownsamplePlan(out_coords=out_coords, rule=Rulebook(rule, inv),
+                          inv_rule=Rulebook(inv, rule), out_shape=out_shape,
                           num_out=num_out)
+
+
+def mm_float32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed in float32 with a float32 result, as the reference's
+    ``dot_general(..., preferred_element_type=float32)``. On the card, bf16
+    operands go to cuBLAS's mixed-precision product (``aten::mm.dtype``), so
+    no float32 copy of either is made; on the CPU, which has no kernel for
+    that op, both are widened first: a product of two bf16 values is exact
+    in float32, so the arithmetic is the same up to summation order."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+# rows of the weight gradient's product that one tensor-core accumulator sums
+DW_CHUNK = 2048
+
+
+def tn_float32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x^T g for x [K, M], g [K, N], summed in float32 with a float32 result
+    (the weight gradient, K = B*V rows). On the card the tensor cores sum
+    pieces of DW_CHUNK rows and the pieces are added in float32: on an
+    H100, one tensor-core accumulator over all K (up to 166400) drifts up
+    to ~2e-5 of max|dW| from a float32 CUDA-core product, pieces of 2048
+    rows ~2e-6."""
+    if not x.is_cuda or x.dtype == torch.float32 or x.shape[0] <= DW_CHUNK:
+        return mm_float32(x.t(), g)
+    n = x.shape[0] // DW_CHUNK
+    body = n * DW_CHUNK
+    out = torch.bmm(x[:body].reshape(n, DW_CHUNK, -1).transpose(1, 2),
+                    g[:body].reshape(n, DW_CHUNK, -1), out_dtype=torch.float32).sum(0)
+    if body < x.shape[0]:
+        out = out + mm_float32(x[body:].t(), g[body:])
+    return out
+
+
+class _SparseConv(torch.autograd.Function):
+    """The gather-GEMM, with the reference's gather-only backward. Saved for
+    the backward: the features in the compute dtype, the float32 weights,
+    the transposed rulebook and the output mask, never the gathered rows."""
+
+    @staticmethod
+    def forward(ctx, features, weights, rulebook: Rulebook, out_mask, compute_dtype):
+        in_idx = rulebook.in_idx
+        b, k3, vo = in_idx.shape
+        x, w = features, weights
+        if compute_dtype is not None:
+            x, w = x.to(compute_dtype), w.to(compute_dtype)
+        cin = x.shape[2]
+        idx = in_idx.transpose(1, 2).reshape(b, vo * k3)                 # [B, Vo*K3]
+        g = take_rows_or_zero(x, idx).reshape(b, vo, k3 * cin)
+        out = torch.matmul(g, w.reshape(k3 * cin, -1)).to(features.dtype)
+        ctx.save_for_backward(x, weights, rulebook.transpose, out_mask)
+        ctx.submanifold, ctx.features_dtype = rulebook.submanifold, features.dtype
+        return torch.where(out_mask[..., None], out, 0)
+
+    @staticmethod
+    def backward(ctx, gout):
+        """G[u] = [g[transpose[k, u]]]_k, [B*V, K^3*Cout]; then dx = G W^T
+        and dW = x^T G, each one float32-accumulated product."""
+        x, weights, tr, out_mask = ctx.saved_tensors
+        if tr is None:
+            raise RuntimeError('this rulebook carries no transpose, so its conv has no '
+                               'backward (build it with build_subm_rulebook or '
+                               'build_downsample)')
+        apply_sparse_conv.backwards += 1
+        b, v, cin = x.shape
+        k3, cout = tr.shape[1], weights.shape[-1]
+        g = torch.where(out_mask[..., None], gout, 0).to(x.dtype)
+        gath = take_rows_or_zero(g, tr.transpose(1, 2).reshape(b, v * k3))
+        gath = gath.reshape(b * v, k3 * cout)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = weights.to(x.dtype).transpose(1, 2).reshape(k3 * cout, cin)
+            dx = mm_float32(gath, wt).reshape(b, v, cin).to(ctx.features_dtype)
+            if ctx.submanifold:
+                # the subm VJP masks dx; strided and inverse rows without a
+                # pair come out zero on their own (``:703-708``)
+                dx = torch.where(out_mask[..., None], dx, 0)
+        if ctx.needs_input_grad[1]:
+            dw = tn_float32(x.reshape(b * v, cin), gath)             # [Cin, K3*Cout]
+            dw = dw.reshape(cin, k3, cout).transpose(0, 1).to(weights.dtype)
+        return dx, dw, None, None, None
 
 
 def apply_sparse_conv(features: torch.Tensor, rulebook: Rulebook,
@@ -190,17 +291,14 @@ def apply_sparse_conv(features: torch.Tensor, rulebook: Rulebook,
 
     One row gather builds [B, Vo, K^3*Cin] (missing neighbours read a zero
     row appended to x, as in the JAX package) and one matmul contracts it with
-    the [K^3*Cin, Cout] weights."""
-    in_idx = rulebook.in_idx
-    b, k3, vo = in_idx.shape
-    x, w = features, weights
-    if compute_dtype is not None:
-        x, w = x.to(compute_dtype), w.to(compute_dtype)
-    cin = x.shape[2]
-    idx = in_idx.transpose(1, 2).reshape(b, vo * k3)                 # [B, Vo*K3]
-    g = take_rows_or_zero(x, idx).reshape(b, vo, k3 * cin)
-    out = torch.matmul(g, w.reshape(k3 * cin, -1)).to(features.dtype)
-    return torch.where(out_mask[..., None], out, 0)
+    the [K^3*Cin, Cout] weights. The backward gathers the cotangent through
+    ``rulebook.transpose`` and sums dx and dW in float32; dW keeps the
+    weights' dtype (float32 parameters get a float32 gradient), dx the
+    features'. ``apply_sparse_conv.backwards`` counts the backwards run."""
+    return _SparseConv.apply(features, weights, rulebook, out_mask, compute_dtype)
+
+
+apply_sparse_conv.backwards = 0
 
 
 def apply_subm(features: torch.Tensor, rulebook: Rulebook, weights: torch.Tensor,

@@ -186,12 +186,33 @@ def batched_window_partition(coords, valid, sparse_shape, window_shape,
     return WindowPartition(shifts=(shift0, shift1), keep=final)
 
 
-def permute_rows(x: torch.Tensor, fwd_idx: torch.Tensor) -> torch.Tensor:
-    """out[b, i] = x[b, fwd_idx[b, i]], a zero row where fwd_idx < 0
-    (``window.py:248-258``, forward only). The JAX gather would clamp an
-    index past the end; these indices come from the partition and are always
-    in range."""
-    return take_rows_or_zero(x, fwd_idx)
+class _PermuteRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fwd_idx, bwd_idx):
+        ctx.save_for_backward(bwd_idx)
+        return take_rows_or_zero(x, fwd_idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (bwd_idx,) = ctx.saved_tensors
+        permute_rows.backwards += 1
+        return take_rows_or_zero(dout, bwd_idx), None, None
+
+
+def permute_rows(x: torch.Tensor, fwd_idx: torch.Tensor, bwd_idx: torch.Tensor) -> torch.Tensor:
+    """out[b, i] = x[b, fwd_idx[b, i]], a zero row where fwd_idx < 0, with
+    the JAX package's gather-only gradient (``window.py:257-286``): bwd_idx
+    is the inverse map (bwd_idx[b, j] = i iff fwd_idx[b, i] = j, -1 where
+    row j is never read), and dx[b, j] = dout[b, bwd_idx[b, j]] (a zero row
+    where bwd_idx < 0), where autograd's gradient of the forward gather
+    would scatter-add rows. Every row of dx has at most one addend, so the
+    two agree exactly. The JAX gather would clamp an index past the end;
+    these indices come from the partition and are always in range.
+    ``permute_rows.backwards`` counts the backwards run."""
+    return _PermuteRows.apply(x, fwd_idx, bwd_idx)
+
+
+permute_rows.backwards = 0
 
 
 def positional_embedding(coors_in_win, window_shape, feat_dim: int,

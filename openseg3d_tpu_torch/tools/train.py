@@ -39,8 +39,9 @@ def parse_args(argv=None):
     p.add_argument('--seed', type=int, default=None)
     p.add_argument('--deterministic', action='store_true', default=False,
                    help='deterministic algorithms (torch.use_deterministic_algorithms, '
-                        'warning where an op has none): on the GPU, sums that use '
-                        'atomics (index_add_) no longer vary from run to run')
+                        'warning where an op has none): on the GPU, the sums that still '
+                        'use atomics (the index_add_ of the devoxelize gather\'s backward) '
+                        'no longer vary from run to run')
     p.add_argument('--sync_bn', action='store_true', default=False,
                    help='accepted for parity; one device has one BatchNorm')
     p.add_argument('--no_validate', action='store_true')

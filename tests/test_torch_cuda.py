@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the same GPU:
 window attention (eval, B1), the unpacked window attention (B4), the train
-attention forward and backward (B2)
-and the 1-NN search (B3). Every test here needs an NVIDIA GPU with nvcc and
+attention forward and backward (B2),
+the 1-NN search (B3, with its split search's edge cases) and the sparse
+conv's weight-gradient product (float32 sums of bf16 operands). Every test here needs an NVIDIA GPU with nvcc and
 skips without one; on the GPU machine run them with
 
     python3 -m pytest tests/test_torch_cuda.py
@@ -17,7 +18,8 @@ window and head (p = 0 for the eval kernels). Train gradients, each of dq, dk an
 largest magnitude: float32 within 1e-4 (sums of T products); bfloat16 within
 4 bf16 ulps (the kernel rounds P and dS to bf16 before their products, and
 its residual O). The dropout mask is the same hash in both, so these hold at
-drop rate 0.1 as at 0. 1-NN: indices equal.
+drop rate 0.1 as at 0. 1-NN: indices equal. Weight-gradient product:
+within 1e-5 of the largest element of the exact (float64) sum.
 """
 
 import pytest
@@ -306,3 +308,70 @@ def test_nearest_point_matches_plain_with_ties_and_no_valid_point(cuda):
     assert bool((idx <= torch.arange(10, device=cuda)).all())
     torch.testing.assert_close(idx, nearest_point_plain(dup[:, :10].contiguous(), dup, ones),
                                rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows', [2048, 50000, 166400])
+def test_weight_gradient_product_sums_in_float32(cuda, rows):
+    """The sparse conv's dW product (x^T G, bf16 operands, float32 result)
+    within 1e-5 of max|dW| of the exact sum (float64 of the same bf16
+    values; each product of two bf16 values is exact in float32), at the
+    main path's longest contraction (166400 rows)."""
+    from openseg3d_tpu_torch.ops.sparse_conv import tn_float32
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(rows, 96, generator=gen, device=cuda).bfloat16()
+    g = torch.randn(rows, 27 * 32, generator=gen, device=cuda).bfloat16()
+    got = tn_float32(x, g)
+    assert got.dtype == torch.float32
+    want = x.double().t() @ g.double()
+    err = float((got.double() - want).abs().max()) / float(want.abs().max())
+    assert err <= 1e-5, err
+
+
+def nearest_point_edge_cases(device, gen):
+    """[(name, queries, points, valid)] for the split search: every split
+    boundary straddled by a tie (the point before it duplicated after it,
+    queries on both copies), P a multiple of neither the split nor the
+    chunk, Q not a multiple of the query tile, an all-invalid sample, B = 2
+    with different valid counts and padding past the last valid point, and
+    P smaller than one chunk."""
+    from openseg3d_tpu_torch.ops.knn import split_plan
+    cases = []
+    b, q, p = 2, 3001, 40000 + 77
+    _, span = split_plan(b, q, p, device)
+    points = torch.randint(0, 40, (b, p, 3), generator=gen, device=device).float() * 0.25
+    bounds = torch.arange(span, p, span, device=device)
+    assert bounds.numel() > 0, (p, span)
+    points[:, bounds] = points[:, bounds - 1]
+    queries = (torch.randint(0, 20, (b, q, 3), generator=gen, device=device).float() * 2 + 1) * 0.25
+    queries[:, :bounds.numel()] = points[:, bounds]
+    valid = torch.ones(b, p, dtype=torch.bool, device=device)
+    valid[1, 30000:] = False                      # sample 1: padding past 30000
+    valid[1, :5000] = torch.rand(5000, generator=gen, device=device) > 0.5
+    cases.append(('ties at split boundaries, B = 2, padded tail', queries, points.contiguous(),
+                  valid))
+    none = valid.clone()
+    none[0] = False
+    cases.append(('an all-invalid sample', queries, points.contiguous(), none))
+    small_p = points[:, :300].contiguous()
+    cases.append(('P below one chunk', queries[:, :77].contiguous(), small_p,
+                  torch.ones(b, 300, dtype=torch.bool, device=device)))
+    return cases
+
+
+@pytest.mark.cuda
+def test_nearest_point_split_edge_cases_match_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for name, queries, points, valid in nearest_point_edge_cases(cuda, gen):
+        got = nearest_point(queries, points, valid)
+        want = nearest_point_plain(queries, points, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (name, int((got != want).sum()))
+        assert bool(((got >= 0) == valid.any(dim=1, keepdim=True)).all()), name
+    # the boundary ties went to the copy before the boundary
+    from openseg3d_tpu_torch.ops.knn import split_plan
+    name, queries, points, valid = nearest_point_edge_cases(cuda, gen)[0]
+    _, span = split_plan(*queries.shape[:2], points.shape[1], cuda)
+    bounds = torch.arange(span, points.shape[1], span, device=cuda)
+    got = nearest_point(queries, points, valid)[0, :bounds.numel()]
+    assert bool((got < bounds).all()), (got, bounds)

@@ -235,7 +235,7 @@ def test_positional_embedding_and_permute_rows_equal_jax():
     x = rng.randn(2, 10, 4).astype(np.float32)
     idx = rng.randint(-1, 10, (2, 14)).astype(np.int32)
     np.testing.assert_array_equal(
-        win.permute_rows(t(x), t(idx)).numpy(),
+        win.permute_rows(t(x), t(idx), t(idx)).numpy(),
         _np(jwin.permute_rows(jnp.asarray(x), jnp.asarray(idx), jnp.asarray(idx))))
 
 
@@ -284,7 +284,138 @@ def test_sparse_conv_gradients_equal_jax_custom_vjps():
                 rng.randn(2, 40, cin).astype(np.float32))
 
 
-def test_permute_rows_gradient_equals_jax_custom_vjp():
+def _bf16(a):
+    """float32 values that bf16 holds exactly, so that both sides start from
+    the same bf16 numbers."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def _bf16_ulp(a):
+    """One bf16 ulp at each |a| (8 significant bits): 2^(floor(log2|a|) - 7)."""
+    _, e = np.frexp(np.abs(a).astype(np.float64))
+    return np.ldexp(1.0, e - 8)
+
+
+def _bf16_conv_grads(jrule, rule, feats, w, mask, cot):
+    """The production dtypes: bf16 features, float32 weights, compute dtype
+    bf16. d sum(conv(x, w) * cot) / d (x, w) on both sides, returned as
+    numpy (dx_port, dx_jax, dw_port, dw_jax)."""
+    feats, cot = _bf16(feats), _bf16(cot)
+
+    def jloss(x, ww):
+        y = jsc.apply_subm(x, jrule, ww, jnp.asarray(mask), compute_dtype=jnp.bfloat16)
+        return jnp.sum(y.astype(jnp.float32) * cot)
+
+    jgx, jgw = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+        jnp.asarray(feats).astype(jnp.bfloat16), jnp.asarray(w))
+    x = t(feats).bfloat16().requires_grad_(True)
+    ww = t(w).requires_grad_(True)
+    y = sc.apply_subm(x, rule, ww, t(mask), compute_dtype=torch.bfloat16)
+    assert y.dtype == torch.bfloat16
+    (y.float() * t(cot)).sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and ww.grad.dtype == torch.float32
+    return (x.grad.float().numpy(), np.asarray(jgx.astype(jnp.float32)),
+            ww.grad.numpy(), np.asarray(jgw))
+
+
+@pytest.mark.parametrize('kind', ['subm', 'strided', 'inverse'])
+def test_sparse_conv_bf16_gradients_equal_jax_custom_vjps(kind):
+    """Both sides accumulate dx and dW in float32 from the same bf16 operands
+    and keep dW float32, so dW differs only by float32 summation order:
+    within 1e-4 of max|dW_jax| (a bf16 rounding of dW alone would be ~2^-9
+    of it). dx is rounded once to bf16 from float32 sums that differ only
+    in order: within one bf16 ulp of |dx_jax|."""
+    rng = np.random.RandomState(11)
+    shape, cin, cout = (8, 8, 8), 8, 16
+    coords, feats = _make_sparse(rng, 2, 48, 40, shape, cin)
+    mask = coords[..., 0] >= 0
+    jst = jsc.SparseTensor(features=jnp.asarray(feats), coords=jnp.asarray(coords),
+                           spatial_shape=shape)
+    st = sc.SparseTensor(t(feats), t(coords), shape)
+    if kind == 'subm':
+        args = (jax.jit(jsc.build_planar_k3_direct)(jst), sc.build_subm_rulebook(st), feats,
+                rng.randn(27, cin, cout).astype(np.float32), mask,
+                rng.randn(2, 48, cout).astype(np.float32))
+    else:
+        jplan = jax.jit(jsc.build_downsample, static_argnums=(1,))(jst, 32)
+        plan = sc.build_downsample(st, 32)
+        cmask = (plan.out_coords[..., 0] >= 0).numpy()
+        if kind == 'strided':
+            args = (jplan.rule, plan.rule, feats, rng.randn(27, cin, cout).astype(np.float32),
+                    cmask, rng.randn(2, 32, cout).astype(np.float32))
+        else:
+            coarse = rng.randn(2, 32, cout).astype(np.float32) * cmask[..., None]
+            args = (jplan.inv_rule, plan.inv_rule, coarse,
+                    rng.randn(27, cout, cin).astype(np.float32), mask,
+                    rng.randn(2, 48, cin).astype(np.float32))
+    dx, jdx, dw, jdw = _bf16_conv_grads(*args)
+    dw_err = float(np.abs(dw - jdw).max()) / float(np.abs(jdw).max())
+    assert dw_err <= 1e-4, dw_err
+    dx_err = np.abs(dx - jdx)
+    assert (dx_err <= _bf16_ulp(jdx)).all(), float((dx_err / _bf16_ulp(jdx)).max())
+    assert np.abs(jdx).max() > 0 and np.abs(jdw).max() > 0
+
+
+def _subm_case(rng, cin=3, cout=4):
+    coords, feats = _make_sparse(rng, 2, 24, 18, (5, 5, 5), cin)
+    st = sc.SparseTensor(t(feats), t(coords), (5, 5, 5))
+    return (t(feats), sc.build_subm_rulebook(st), t(rng.randn(27, cin, cout).astype(np.float32)),
+            t(coords[..., 0] >= 0))
+
+
+def test_sparse_conv_saves_no_gathered_rows():
+    """What the conv keeps for its backward, recorded by saved_tensors_hooks:
+    the inputs, the transposed rulebook and the mask, never a [V, 27*Cin]
+    row gather (the JAX custom VJPs keep only the inputs too)."""
+    feats, rb, w, mask = _subm_case(np.random.RandomState(12), cin=3)
+    x, ww = feats.requires_grad_(True), w.requires_grad_(True)
+    saved = []
+
+    def pack(tensor):
+        saved.append(tuple(tensor.shape))
+        return tensor
+
+    before = sc.apply_sparse_conv.backwards
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda tensor: tensor):
+        y = sc.apply_subm(x, rb, ww, mask)
+    assert sorted(saved) == sorted([tuple(x.shape), tuple(w.shape), tuple(rb.transpose.shape),
+                                    tuple(mask.shape)]), saved
+    assert not any(s[-1] == 27 * 3 for s in saved), saved
+    y.square().sum().backward()
+    assert sc.apply_sparse_conv.backwards == before + 1
+    assert x.grad is not None and ww.grad is not None
+
+
+def test_rulebook_without_transpose_has_no_backward():
+    """A rulebook without its transpose runs forward but raises in the
+    backward: there is no fallback to autograd's scatter-add."""
+    feats, rb, w, mask = _subm_case(np.random.RandomState(13))
+    bare = sc.Rulebook(rb.in_idx)
+    w = w.requires_grad_(True)
+    y = sc.apply_subm(feats, bare, w, mask)
+    torch.testing.assert_close(y, sc.apply_subm(feats, rb, w, mask), rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match='transpose'):
+        y.sum().backward()
+
+
+def test_subm_transpose_is_the_transposed_rulebook():
+    """The mirror the subm rulebook carries is its transpose: T[k, u] = o iff
+    in_idx[k, o] = u, checked pair by pair; the downsample plan's two rules
+    are each other's transposes."""
+    rng = np.random.RandomState(14)
+    coords, feats = _make_sparse(rng, 2, 40, 30, (8, 8, 8), 2)
+    st = sc.SparseTensor(t(feats), t(coords), (8, 8, 8))
+    plan = sc.build_downsample(st, 24)
+    for rb in (sc.build_subm_rulebook(st), plan.rule, plan.inv_rule):
+        in_idx, tr = rb.in_idx.numpy(), rb.transpose.numpy()
+        want = np.full(tr.shape, -1)
+        bi, k, o = np.nonzero(in_idx >= 0)
+        want[bi, k, in_idx[bi, k, o]] = o
+        np.testing.assert_array_equal(tr, want)
+
+
+def _check_permute_rows_gradient(dtype):
+    """Every row of dx has at most one addend on both sides: bit-equal."""
     rng = np.random.RandomState(9)
     b, n, m, c = 2, 12, 16, 3
     x = rng.randn(b, n, c).astype(np.float32)
@@ -296,11 +427,25 @@ def test_permute_rows_gradient_equals_jax_custom_vjp():
         fwd[bi, slots] = rows
         bwd[bi, rows] = slots
     cot = rng.randn(b, m, c).astype(np.float32)
-    jg = jax.grad(lambda xx: jnp.sum(jwin.permute_rows(xx, jnp.asarray(fwd),
-                                                       jnp.asarray(bwd)) * cot))(jnp.asarray(x))
-    xt = t(x).requires_grad_(True)
-    (win.permute_rows(xt, t(fwd)) * t(cot)).sum().backward()
-    np.testing.assert_array_equal(xt.grad.numpy(), _np(jg))
+    jdt, tdt = {'float32': (jnp.float32, torch.float32),
+                'bfloat16': (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jcot = jnp.asarray(cot).astype(jdt)
+    jg = jax.grad(lambda xx: jnp.sum((jwin.permute_rows(xx, jnp.asarray(fwd), jnp.asarray(bwd))
+                                      * jcot).astype(jnp.float32)))(jnp.asarray(x).astype(jdt))
+    xt = t(x).to(tdt).requires_grad_(True)
+    before = win.permute_rows.backwards
+    (win.permute_rows(xt, t(fwd), t(bwd)) * t(cot).to(tdt)).float().sum().backward()
+    assert win.permute_rows.backwards == before + 1
+    assert xt.grad.dtype == tdt
+    np.testing.assert_array_equal(xt.grad.float().numpy(), _np(jg.astype(jnp.float32)))
+
+
+def test_permute_rows_gradient_equals_jax_custom_vjp():
+    _check_permute_rows_gradient('float32')
+
+
+def test_permute_rows_gradient_in_bf16_equals_jax_custom_vjp():
+    _check_permute_rows_gradient('bfloat16')
 
 
 def test_segment_max_gradient_with_ties_equals_jax():

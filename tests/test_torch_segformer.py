@@ -36,6 +36,8 @@ from helpers import synthetic_batch, tiny_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)
+# bf16 logits: the CPU shows at most 1.35e-2 of the largest logit
+BF16_LOGIT_TOL = 4e-2
 
 
 def _cfg():
@@ -81,9 +83,21 @@ def _port(cfg, params, stats):
     return model.eval(), spec
 
 
-@pytest.mark.parametrize('batch_size', [1, 2])
-def test_forward_matches_jax(jax_model, batch_size):
+@pytest.mark.parametrize('batch_size,dtype', [
+    pytest.param(1, 'float32', id='1'),
+    pytest.param(2, 'float32', id='2'),
+    pytest.param(1, 'bfloat16', id='1-bfloat16'),
+])
+def test_forward_matches_jax(jax_model, batch_size, dtype):
+    """bfloat16 (``RUNTIME.COMPUTE_DTYPE``): both sides round activations to
+    bf16 at their own places (the JAX einsum attention, the port's plain
+    version), so each logit array is held to BF16_LOGIT_TOL of its largest
+    magnitude instead of 1e-4."""
     cfg, jmodel, _, params, stats = jax_model
+    if dtype != 'float32':
+        cfg = tiny_cfg(MODEL={'SEGMENTOR': 'segformer', 'DEPTHS': [2, 2, 2, 2]},
+                       RUNTIME={'COMPUTE_DTYPE': dtype})
+        jmodel, _ = jax_build_segmentor(cfg)
     nb = synthetic_batch(cfg, batch_size=batch_size, seed=batch_size)
     jb = {k: jnp.asarray(v) for k, v in nb.items() if k != 'batch_size'}
     ref = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(
@@ -94,7 +108,13 @@ def test_forward_matches_jax(jax_model, batch_size):
         out = model(to_device(nb, 'cpu'))
     for k in ('point_out', 'voxel_out', 'aux_voxel_out'):
         assert out[k].dtype == torch.float32
-        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), err_msg=k, **TOL)
+        got, want = out[k].numpy(), np.asarray(ref[k], np.float32)
+        if dtype == 'float32':
+            np.testing.assert_allclose(got, want, err_msg=k, **TOL)
+        else:
+            err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+            print(f'{k}: max abs diff / max abs logit {err:.3g}')
+            assert err <= BF16_LOGIT_TOL, (k, err)
     np.testing.assert_array_equal(out['aux_voxel_coords'].numpy(),
                                   np.asarray(ref['aux_voxel_coords']))
     np.testing.assert_array_equal(out['aux_voxel_mask'].numpy(),
