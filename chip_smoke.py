@@ -111,10 +111,43 @@ Phases (each asserts or raises; nothing is caught):
      same step and update counts and parameters and optimizer state within
      1e-6 of the first (relative to each tensor's largest magnitude); (c)
      2 train steps through WaymoDataset on a tree in
-     the offline parser's format (tools/rehearsal.make_tree), instance paste
+     the offline parser's format (data/synthetic.make_tree), instance paste
      and PolarMix on; (d) tools.eval on (a)'s checkpoints, without TTA on 4
      frames and with the 36-variant host TTA on 1 frame: finite mIoUs;
      --tta_device raises.
+  A. full capacity against the JAX package: for each reference file of
+     openseg3d_tpu_torch/parity_data/ (written by the JAX package's own eval
+     step on a CPU: configs/waymo_one_sweep.yaml, waymo_multi_sweeps.yaml,
+     and waymo_one_sweep.yaml with SPNet; seeded numpy weights; the bench
+     frame or a 3-sweep frame), the port's eval step with the loss on the
+     card in float32 (B1's FMA body) and in bfloat16, held to
+     parity.compare_with_reference's gates: float32 sampled logits within
+     1e-3 x max(1, max|logit|), argmax agreement >= 99.9%, the histogram
+     within twice the disagreeing points, the loss within 1e-3; bfloat16
+     agreement no lower than JAX bf16's own minus 0.5 points and sampled
+     logits within twice JAX bf16's own error; the aux coords and mask
+     equal. Prints the measured numbers;
+  C. configs/waymo_multi_sweeps.yaml on the 3-sweep reference frame
+     (180222 points, 60074 current) and configs/waymo_one_sweep_cylinder.yaml
+     on the bench frame in (rho, phi, z, x, y, features): the bf16 eval step
+     and one train step at full width and capacity, finite, with B1, B2f,
+     B2b and B3 launched as the config implies and one gather-only backward
+     per sparse conv; multi-sweep: forward and step ms, peak memory,
+     device-busy share; then tools/repro_nan_dw.py's degenerate cylinder
+     cloud through 5 full-scale bf16 train steps: each step's non-finite
+     gradient leaves and whether the guard skipped it, printed, not gated;
+  D. SPNet (configs/waymo_one_sweep.yaml, MODEL.SEGMENTOR spnet) on the
+     bench frame: bf16 eval step and train step, finite, 1 B3 launch and 43
+     gather-only conv backwards a step, at most one bf16 index_add_, times,
+     peak and busy share; then tools.train on
+     configs/synthetic_accuracy_spnet.yaml as 7a: a falling loss, validation
+     mIoU >= 0.15;
+  B. the rehearsal through the port's tools on a tree in the offline
+     parser's format with a test-set frame list (data/synthetic.make_tree):
+     train 2 steps, eval, then tools.test under the stand-in protos
+     (OPENSEG3D_ALLOW_WOD_STUB=1); the decoded submission holds each frame's
+     eval-forward argmax over its current points, scattered through
+     points_ri.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1.
 Every time printed comes with the card's name and power limit.
@@ -131,7 +164,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
 from unittest import mock
 
 # the port must not need JAX, the JAX package or its benchmark script: make
@@ -675,24 +707,15 @@ def knn_yardstick(dst, src, valid, chunk=4096):
     return dict(library_ms=lib_ms, bound_ms=bms, bound_by=by, floor_ms=floor_ms)
 
 
-def frame_batch(cfg, device):
+def frame_batch(cfg, device, cloud=None):
     """One bench.py frame (the port's copy of its generator, RandomState(0)),
-    voxelized and padded."""
-    import numpy as np
-    from openseg3d_tpu_torch.core.voxelizer import VoxelGenerator, majority_voxel_labels
-    from openseg3d_tpu_torch.data.batch import collate_padded, pad_sample, to_device
-    from openseg3d_tpu_torch.data.synthetic import make_waymo_like_cloud
-    rng = np.random.RandomState(0)
-    pts = make_waymo_like_cloud(rng, N_POINTS)
-    vg = VoxelGenerator(cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE)
-    coords, ids = vg.generate(pts)
-    labels = rng.randint(0, cfg.DATASET.NUM_CLASSES, N_POINTS)
-    sample = dict(points=pts, voxel_coords=coords, point_voxel_ids=ids,
-                  point_labels=labels,
-                  voxel_labels=majority_voxel_labels(ids, labels, coords.shape[0]))
-    padded = pad_sample(sample, cfg.RUNTIME.MAX_POINTS_PER_SAMPLE,
-                        cfg.RUNTIME.MAX_VOXELS_PER_SAMPLE)
-    return to_device(collate_padded([padded]), device), coords.shape[0]
+    or `cloud` ([N, 6] xyz + features), in `cfg`'s input (the cylinder's
+    where it is set), voxelized and padded (data/synthetic.bench_frame).
+    Returns (batch, live voxels)."""
+    from openseg3d_tpu_torch.data.batch import to_device
+    from openseg3d_tpu_torch.data.synthetic import bench_frame
+    batch = bench_frame(cfg, N_POINTS, cloud=cloud)
+    return to_device(batch, device), int(batch['voxel_mask'].sum())
 
 
 def busy_ms(events) -> float:
@@ -1233,17 +1256,11 @@ def run_cli(smi, per_step):
     import math
     import statistics as st
     import torch
-    from openseg3d_tpu_torch.ops.attention import (window_attention_packed,
-                                                   window_attention_train_backward,
-                                                   window_attention_train_forward)
-    from openseg3d_tpu_torch.data.synthetic import make_waymo_like_cloud
-    from openseg3d_tpu_torch.ops.knn import nearest_point
+    from openseg3d_tpu_torch.data.synthetic import make_tree
     from openseg3d_tpu_torch.tools import eval as eval_tool
     from openseg3d_tpu_torch.tools import train as train_tool
-    from tools.rehearsal import make_tree
 
-    counters = {'B1': window_attention_packed, 'B2f': window_attention_train_forward,
-                'B2b': window_attention_train_backward, 'B3': nearest_point}
+    counters = model_counters()
     acc_cfg = os.path.join(REPO, 'configs', 'synthetic_accuracy.yaml')
     smoke_cfg = os.path.join(REPO, 'configs', 'synthetic_smoke.yaml')
     out = {}
@@ -1315,12 +1332,7 @@ def run_cli(smi, per_step):
 
         # (c) real schema: WaymoDataset with instance paste and PolarMix
         tree = os.path.join(tmp, 'tree')
-        # make_tree draws its frames with bench.make_waymo_like_cloud: the
-        # port's copy (held equal by tests/test_torch_data.py) stands in for it
-        stand_in = types.ModuleType('bench')
-        stand_in.make_waymo_like_cloud = make_waymo_like_cloud
-        with mock.patch.dict(sys.modules, {'bench': stand_in}):
-            make_tree(tree, 2, N_POINTS)
+        make_tree(tree, 2, N_POINTS)
         hist_c, secs = timed(train_tool.main, [
             '--cfg_file', os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'),
             '--data_dir', tree, '--batch_size', '1', '--epochs', '1', '--num_workers', '2',
@@ -1348,6 +1360,308 @@ def run_cli(smi, per_step):
             print(f'(d) --tta_device raises: {e}', flush=True)
         out['eval'] = dict(no_tta=res_d['mIOU'], tta=res_t['mIOU'], no_tta_s=secs, tta_s=secs_t)
     return out
+
+
+def model_counters():
+    """{kernel: its wrapper}, each with the .launches counter its wrapper
+    adds one to where it launches the kernel."""
+    from openseg3d_tpu_torch.ops.attention import (window_attention_packed,
+                                                   window_attention_train_backward,
+                                                   window_attention_train_forward)
+    from openseg3d_tpu_torch.ops.knn import nearest_point
+    return {'B1': window_attention_packed, 'B2f': window_attention_train_forward,
+            'B2b': window_attention_train_backward, 'B3': nearest_point}
+
+
+def check_references(smi):
+    """Phase A: the port on the card against each reference file of the
+    JAX package's eval step (parity.REFERENCES), in float32 (B1's FMA body)
+    and in bfloat16, with parity.compare_with_reference's gates (it raises
+    on a failed one). Returns {name: {dtype: measured numbers}}."""
+    from openseg3d_tpu_torch import parity
+    out = {}
+    for name in sorted(parity.REFERENCES):
+        t0 = time.perf_counter()
+        out[name] = res = parity.check_reference(name, ('float32', 'bfloat16'), 'cuda')
+        for dtype, m in res.items():
+            print(f'(A) {name} {dtype}: argmax agreement {m["agreement"]:.6f} ({m["disagreeing"]} '
+                  f'points differ), sampled '
+                  f'logits {m["logit_err"]:.3g} x max(1, max|logit|) (point '
+                  f'{m["point_logit_err"]:.3g}, voxel {m["voxel_logit_err"]:.3g}, aux '
+                  f'{m["aux_logit_err"]:.3g}; max|logit| {m["max_abs_logit"]:.4g}), histogram L1 '
+                  f'{m["hist_l1"]}, loss {m["loss"]:.6g} vs {m["ref_loss"]:.6g} (rel '
+                  f'{m["loss_rel"]:.3g}), class sums {m["class_sum_rel"]:.3g}, aux coords and '
+                  f'mask equal {m["aux_equal"]}; gates {m["gates"]}', flush=True)
+        print(f'(A) {name}: {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
+def run_variant(label, cfg, batch, smi, timed=True):
+    """Phases C and D: one configuration's full-width, full-capacity bf16
+    eval forward and train step on `batch` (seeded random weights). Checks
+    finite logits and loss, the histogram's count, finite gradients, the
+    kernels' launches as the configuration implies (B1 once per attention
+    layer and level in the eval step, B2f and B2b so in the train step, B3
+    once in the train step) and one gather-only backward per sparse conv
+    (the OCR transform's included) and two permute_rows backwards per
+    encoder layer; with `timed`, the median forward and step ms, peak memory,
+    the device-busy share of one profiled forward and step, and the step's
+    bf16 index_add_ kernels (at most one: the devoxelize gather's backward).
+    Returns a dict of the numbers."""
+    import torch
+    from openseg3d_tpu_torch.engine import (TrainState, build_segmentor, make_eval_step,
+                                            make_forward, make_train_step)
+    from openseg3d_tpu_torch.models.backbones.point_transformer import stage_level_specs
+    from openseg3d_tpu_torch.models.ocr import OCRLayer
+    from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
+    from openseg3d_tpu_torch.models.sparse_modules import SparseConv
+    from openseg3d_tpu_torch.ops.sparse_conv import apply_sparse_conv
+    from openseg3d_tpu_torch.ops.window import permute_rows
+    from openseg3d_tpu_torch.weights import init_weights
+
+    counters = model_counters()
+    model, spec = build_segmentor(cfg, batch['points'].device)
+    init_weights(model, torch.Generator().manual_seed(0))
+    segformer = cfg.MODEL.SEGMENTOR == 'segformer'
+    attention = (sum(d * len(lv) for d, lv in zip(spec.depths, stage_level_specs(spec)))
+                 if segformer else 0)
+    convs = sum(isinstance(m, (SparseConv, OCRLayer)) for m in model.modules())
+    valid = batch['point_mask'] & batch['cur_point_mask']
+    out = dict(points=int(valid.sum()), history=int((batch['point_mask'] & ~valid).sum()),
+               voxels=int(batch['voxel_mask'].sum()), convs=convs)
+
+    for c in counters.values():
+        c.launches = 0
+    res = make_eval_step(cfg, spec, model)(batch)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    assert launches == {'B1': attention, 'B2f': 0, 'B2b': 0, 'B3': 0}, launches
+    logits = res['point_out']
+    assert bool(torch.isfinite(logits).all()), label
+    assert int(res['hist'].sum()) == out['points'], (int(res['hist'].sum()), out['points'])
+    assert not logits[~valid].any(), label            # logits only for current points
+
+    state = TrainState(model, build_optimizer(cfg, model.parameters()),
+                       build_schedule(cfg, 30, 1000))
+    step = make_train_step(cfg, spec)
+    for c in counters.values():
+        c.launches = 0
+    apply_sparse_conv.backwards = permute_rows.backwards = 0
+    state, m = step(state, batch, seed=0)
+    torch.cuda.synchronize()
+    train_launches = {k: c.launches for k, c in counters.items()}
+    backwards = (apply_sparse_conv.backwards, permute_rows.backwards)
+    print(f'({label}) {out["points"]} current points ({out["history"]} history), '
+          f'{out["voxels"]} voxels; eval launches {launches}; train step launches '
+          f'{train_launches}, gather-only backwards (conv, permute_rows) {backwards}, model '
+          f'convs {convs}; loss {float(m["loss"]):.6g}', flush=True)
+    assert train_launches == {'B1': 0, 'B2f': attention, 'B2b': attention, 'B3': 1}, \
+        train_launches
+    assert backwards == (convs, 2 * sum(spec.depths) if segformer else 0), backwards
+    assert m['grads_finite'] and bool(torch.isfinite(m['loss'])), m
+    out.update(eval_launches=launches, train_launches=train_launches, backwards=backwards,
+               loss=float(m['loss']))
+    if not timed:
+        return out
+
+    forward = make_forward(model)
+    forward(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd = [cuda_ms(lambda: forward(batch), 1) for _ in range(5)]
+    fwd_peak = torch.cuda.max_memory_allocated()
+    events, wall = trace(lambda: forward(batch))
+    fwd_busy = busy_ms(events) / wall
+    print(f'({label}) profiled forward, kernels with the most device time (name, ms, count): '
+          f'{top_kernels(events, 6)}', flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    steps = [cuda_ms(lambda i=i: step(state, batch, seed=i), 1) for i in range(1, 5)]
+    step_peak = torch.cuda.max_memory_allocated()
+    events, wall = trace(lambda: step(state, batch, seed=5))
+    step_busy = busy_ms(events) / wall
+    print(f'({label}) profiled step, kernels with the most device time (name, ms, count): '
+          f'{top_kernels(events, 8)}', flush=True)
+    index_add_bf16 = named_kernels(events, 'indexFuncLargeIndex', 'BFloat16')
+    assert index_add_bf16[1] <= 1, index_add_bf16
+    out.update(forward_ms=statistics.median(fwd), forward_peak=fwd_peak, forward_busy=fwd_busy,
+               step_ms=statistics.median(steps[1:]), step_peak=step_peak, step_busy=step_busy,
+               index_add_bf16=index_add_bf16)
+    print(f'({label}) eval forward ms {[round(x, 2) for x in fwd]} (median '
+          f'{out["forward_ms"]:.2f}), peak {fwd_peak / 2**30:.2f} GiB, device busy '
+          f'{fwd_busy:.3f} of a profiled forward; train step ms {[round(x, 2) for x in steps]} '
+          f'(median after the first {out["step_ms"]:.2f}), peak {step_peak / 2**30:.2f} GiB, '
+          f'device busy {step_busy:.3f} of a profiled step; bf16 index_add_ (ms, launches) '
+          f'{index_add_bf16}; on {smi}', flush=True)
+    return out
+
+
+def degenerate_cloud(rng, n, rg):
+    """tools/repro_nan_dw.py's cloud: the old cylinder generator's
+    geometry, cartesian spans computed from the (rho, phi, z) range, which
+    packs the frame into a ~3 m disk (a numpy copy, so that the port runs it
+    without the JAX package)."""
+    import numpy as np
+    span = (rg[3:5] - rg[0:2]) / 2 * 0.95
+    zlo, zhi = rg[2] * 0.95, rg[5] * 0.95
+    n_ground = int(n * 0.55)
+    r = np.sqrt(rng.uniform(1.0, (min(span) * 0.98) ** 2, n_ground))
+    th = rng.uniform(-np.pi, np.pi, n_ground)
+    gx, gy = r * np.cos(th), r * np.sin(th)
+    gz = np.full(n_ground, zlo + 0.05) + rng.normal(0, 0.02, n_ground)
+    n_obj = n - n_ground
+    ox = rng.uniform(-min(span), min(span), n_obj)
+    oy = rng.uniform(-min(span), min(span), n_obj)
+    oz = rng.uniform(zlo, zhi, n_obj)
+    xyz = np.stack([np.concatenate([gx, ox]), np.concatenate([gy, oy]),
+                    np.concatenate([gz, oz])], axis=1).astype(np.float32)
+    feats = rng.randn(n, 3).astype(np.float32)
+    return np.concatenate([xyz, feats], axis=1)
+
+
+def nan_repro(smi):
+    """The bf16 NaN-gradient repro of tools/repro_nan_dw.py through the
+    port: its degenerate cylinder cloud (163840 points, voxel capacity
+    98304), full width, 5 bf16 train steps from seeded weights.
+    Printed, not gated: each step's loss, its count of non-finite gradient
+    leaves and whether the guard skipped its update. Returns [(loss,
+    non-finite leaves, skipped)]."""
+    import numpy as np
+    import torch
+    from openseg3d_tpu_torch.config import cfg_from_file
+    from openseg3d_tpu_torch.engine import TrainState, build_segmentor, make_train_step
+    from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
+    from openseg3d_tpu_torch.weights import init_weights
+    cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep_cylinder.yaml'),
+                        overrides={'RUNTIME': {'MAX_POINTS_PER_SAMPLE': N_POINTS,
+                                               'MAX_VOXELS_PER_SAMPLE': 98304}})
+    rng = np.random.RandomState(0)
+    cloud = degenerate_cloud(rng, N_POINTS, np.asarray(cfg.DATASET.POINT_CLOUD_RANGE, np.float32))
+    batch, n_voxels = frame_batch(cfg, 'cuda', cloud)
+    model, spec = build_segmentor(cfg, 'cuda')
+    init_weights(model, torch.Generator().manual_seed(0))
+    state = TrainState(model, build_optimizer(cfg, model.parameters()),
+                       build_schedule(cfg, 30, 1000))
+    step = make_train_step(cfg, spec)
+    rows, steps = [], 5
+    for i in range(steps):
+        state, m = step(state, batch, seed=i)
+        bad = [k for k, p in model.named_parameters()
+               if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+        rows.append((float(m['loss']), len(bad), not m['grads_finite']))
+        print(f'(NaN repro) degenerate cylinder cloud, {n_voxels} voxels, step {i}: loss '
+              f'{rows[-1][0]:.6g}, non-finite gradient leaves {len(bad)} {bad[:4]}, update '
+              f'skipped by the guard: {rows[-1][2]}', flush=True)
+    print(f'(NaN repro) {"REPRODUCED" if any(r[1] for r in rows) else "NOT REPRODUCED"} over '
+          f'{steps} bf16 steps on {smi}', flush=True)
+    return rows
+
+
+def run_spnet_learning(smi):
+    """Phase D: tools.train on configs/synthetic_accuracy_spnet.yaml (full
+    width and capacity, bf16) as phase 7a: 32 synthetic frames, batch 1, 4
+    epochs, validation every 2: finite losses, the last epoch's mean logged
+    loss below the first's, final validation mIoU >= 0.15, and B3 launched
+    once per train step and validation frame (SPNet has no attention)."""
+    import math
+    import torch
+    from openseg3d_tpu_torch.tools import train as train_tool
+    frames, epochs = 32, 4
+    counters = model_counters()
+    for c in counters.values():
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        hist = train_tool.main([
+            '--cfg_file', os.path.join(REPO, 'configs', 'synthetic_accuracy_spnet.yaml'),
+            '--synthetic', '--synthetic_frames', str(frames), '--batch_size', '1',
+            '--epochs', str(epochs), '--eval_epoch_interval', '2', '--num_workers', '4',
+            '--log_iter_interval', '4', '--seed', '100', '--save_dir', tmp])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    steps = frames * epochs
+    val_frames = max(frames // 4, 2) * (epochs // 2)
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {'B1': 0, 'B2f': 0, 'B2b': 0, 'B3': steps + val_frames}
+    losses = {e: [r[3] for r in hist['train'] if r[0] == e] for e in range(1, epochs + 1)}
+    first, last = statistics.mean(losses[1]), statistics.mean(losses[epochs])
+    mious = [m for _, m in hist['val']]
+    step_ms = statistics.median(r[4] for r in hist['train'] if r[0] > 1)
+    print(f'(D) SPNet learning run: {steps} steps + {val_frames} validation frames in {secs:.1f} '
+          f's; launches {launches} (expected {want}); mean logged loss epoch 1 {first:.4f} -> '
+          f'epoch {epochs} {last:.4f}; validation mIoU {mious}; median step {step_ms:.1f} ms '
+          f'after epoch 1; skipped updates {hist["skipped"]}; on {smi}', flush=True)
+    assert launches == want, (launches, want)
+    assert all(math.isfinite(x) for v in losses.values() for x in v), losses
+    assert last < first, (first, last)
+    assert mious[-1] >= 0.15, mious
+    return dict(first_loss=first, last_loss=last, mious=mious, step_ms=step_ms, seconds=secs)
+
+
+def run_rehearsal(smi):
+    """Phase B: the port's command-line tools on a tree in the offline
+    parser's format with a test-set frame list (data/synthetic.make_tree,
+    bench-frame clouds): tools.train for 2 steps on
+    configs/waymo_one_sweep.yaml, tools.eval on the tree, then tools.test
+    with OPENSEG3D_ALLOW_WOD_STUB=1. The decoded submission holds every
+    testing frame, and each frame's range images equal the eval forward's
+    argmax over its current points (the newest checkpoint's weights)
+    scattered through points_ri."""
+    import numpy as np
+    import torch
+    from openseg3d_tpu_torch.config import cfg_from_file
+    from openseg3d_tpu_torch.data.batch import collate_padded, to_device
+    from openseg3d_tpu_torch.data.synthetic import make_tree
+    from openseg3d_tpu_torch.data.waymo_dataset import WaymoDataset
+    from openseg3d_tpu_torch.engine import build_segmentor, make_forward
+    from openseg3d_tpu_torch.tools import eval as eval_tool
+    from openseg3d_tpu_torch.tools import test as test_tool
+    from openseg3d_tpu_torch.tools import train as train_tool
+    from openseg3d_tpu_torch.utils import wod_stub
+    from openseg3d_tpu_torch.utils.checkpoint import latest_checkpoint
+    from openseg3d_tpu_torch.utils.submission import assemble_range_image_labels
+    cfg_file = os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml')
+    n_frames, device = 2, 'cuda'
+    with tempfile.TemporaryDirectory() as tmp:
+        tree, save = os.path.join(tmp, 'tree'), os.path.join(tmp, 'run')
+        t0 = time.perf_counter()
+        names = make_tree(tree, n_frames, N_POINTS)
+        hist = train_tool.main(['--cfg_file', cfg_file, '--data_dir', tree, '--batch_size', '1',
+                                '--epochs', '1', '--num_workers', '2', '--no_validate',
+                                '--log_iter_interval', '1', '--seed', '0', '--save_dir', save])
+        losses = [r[3] for r in hist['train']]
+        assert len(losses) == n_frames and all(np.isfinite(losses)), losses
+        res = eval_tool.main(['--cfg_file', cfg_file, '--data_dir', tree, '--save_dir', save,
+                              '--no_tta'])
+        assert np.isfinite(res['mIOU']) and int(res['hist'].sum()) == n_frames * N_POINTS
+        with mock.patch.dict(os.environ, {'OPENSEG3D_ALLOW_WOD_STUB': '1'}):
+            path = test_tool.main(['--cfg_file', cfg_file, '--data_dir', tree,
+                                   '--save_dir', save])
+        secs = time.perf_counter() - t0
+        method, frames = wod_stub.read_submission(path)
+        cfg = cfg_from_file(cfg_file)
+        model, _ = build_segmentor(cfg, device)
+        model.load_state_dict(torch.load(latest_checkpoint(save), map_location=device,
+                                         weights_only=True)['model'])
+        forward = make_forward(model)
+        dataset = WaymoDataset(cfg, tree, 'testing')
+        assert dataset.filenames == names and len(frames) == len(names), (names, len(frames))
+        labelled = 0
+        for i, (ctx, ts, lasers) in enumerate(frames):
+            raw = dataset[i]
+            file_idx, _, stamp = dataset.parse_filename(raw['filename'])
+            assert (ctx, ts) == (file_idx, stamp), (ctx, ts, file_idx, stamp)
+            b = collate_padded([dataset.pad(raw)])
+            mask = b['point_mask'][0] & b['cur_point_mask'][0]
+            preds = forward(to_device(b, device))[0].argmax(dim=-1).cpu().numpy()
+            want = assemble_range_image_labels(preds[mask], b['points_ri'][0][mask])
+            assert np.array_equal(lasers[0][1], want[0]) and np.array_equal(lasers[0][2], want[1])
+            labelled += int((want[0][..., 1] > 0).sum() + (want[1][..., 1] > 0).sum())
+        assert labelled == n_frames * N_POINTS, labelled     # a pixel per current point
+    print(f'(B) rehearsal: train {len(losses)} steps (losses {losses}), eval mIoU '
+          f'{res["mIOU"]:.4f}, test: {len(frames)} frames submitted ({method}), {labelled} '
+          f'range-image pixels labelled, each frame equal to the eval forward\'s argmax; '
+          f'{secs:.1f} s on {smi}', flush=True)
+    return dict(losses=losses, miou=res['mIOU'], frames=len(frames), seconds=secs)
 
 
 def main() -> int:
@@ -1465,6 +1779,35 @@ def main() -> int:
     cli = run_cli(smi, expected)
     print(f'CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
 
+    # A. the port against the JAX package's eval step at full capacity
+    t0 = time.perf_counter()
+    refs = check_references(smi)
+    print(f'phase A: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # C. multi-sweep (the 3-sweep reference frame) and cylinder
+    from openseg3d_tpu_torch import parity
+    from openseg3d_tpu_torch.data.batch import to_device
+    t0 = time.perf_counter()
+    ms_cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_multi_sweeps.yaml'))
+    multi = run_variant('C multi-sweep', ms_cfg,
+                        to_device(parity.reference_frame(ms_cfg, 'multi_sweep'), device), smi)
+    cyl_cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep_cylinder.yaml'))
+    run_variant('C cylinder', cyl_cfg, frame_batch(cyl_cfg, device)[0], smi, timed=False)
+    nan_repro(smi)
+    print(f'phase C: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # D. SPNet on the bench frame, then a learning run through tools.train
+    t0 = time.perf_counter()
+    sp_cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'),
+                           overrides={'MODEL': {'SEGMENTOR': 'spnet'}})
+    spnet = run_variant('D SPNet', sp_cfg, batch, smi)
+    assert spnet['backwards'][0] == 43, spnet['backwards']
+    spnet_learning = run_spnet_learning(smi)
+    print(f'phase D: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # B. the rehearsal: train, eval and test through the port's tools
+    rehearsal = run_rehearsal(smi)
+
     kp, pp = tr['prof'], tr['plain_prof']
     rows = [
         ('window_attention_packed', 'window_attention.cu', 'attention.py:317', launches,
@@ -1481,6 +1824,19 @@ def main() -> int:
     print(f'learning run: loss {cli["learning"]["first_loss"]:.4f} -> '
           f'{cli["learning"]["last_loss"]:.4f}, validation mIoU {cli["learning"]["mious"]}, on '
           f'{smi}', flush=True)
+    for name, res in refs.items():
+        print(f'reference {name}: ' + '; '.join(
+            f'{dt} agreement {m["agreement"]:.6f}, logits {m["logit_err"]:.3g}, loss rel '
+            f'{m["loss_rel"]:.3g}' for dt, m in res.items()), flush=True)
+    for name, v in (('multi-sweep', multi), ('SPNet', spnet)):
+        print(f'{name} bf16: forward {v["forward_ms"]:.2f} ms (peak '
+              f'{v["forward_peak"] / 2**30:.2f} GiB, busy {v["forward_busy"]:.3f}), train step '
+              f'{v["step_ms"]:.2f} ms (peak {v["step_peak"] / 2**30:.2f} GiB, busy '
+              f'{v["step_busy"]:.3f}), on {smi}', flush=True)
+    print(f'SPNet learning run: loss {spnet_learning["first_loss"]:.4f} -> '
+          f'{spnet_learning["last_loss"]:.4f}, validation mIoU {spnet_learning["mious"]}; '
+          f'rehearsal: {rehearsal["frames"]} frames submitted, equal to the eval argmax',
+          flush=True)
     print(json.dumps({'kernels': [{
         'name': name,
         'route': 'cuda',

@@ -9,16 +9,24 @@ them. ``tests/test_torch_data.py`` holds it equal to the original.
 
 ``make_waymo_like_cloud`` is a copy of ``bench.make_waymo_like_cloud``, the
 frame of the JAX package's benchmark, which ``chip_smoke.py`` runs through
-the port.
+the port; ``bench_frame`` voxelizes and pads one such frame. ``make_tree`` follows ``tools/rehearsal.make_tree``: frames of
+that generator written in the offline parser's on-disk format, for the Waymo
+reader, with the range-image index in the parser's column order (col, row,
+return; the rehearsal tool writes (0, col, row), which the submission writer
+reads as column 0, so that at most 128 of a frame's points reach the range
+image).
 """
 
 from __future__ import annotations
+
+import os
+import pickle
 
 import numpy as np
 
 from ..core.voxelizer import VoxelGenerator, majority_voxel_labels
 from ..utils.pointops import cart2polar
-from .batch import pad_sample
+from .batch import collate_padded, pad_sample
 
 
 def make_waymo_like_cloud(rng, n_points: int):
@@ -65,6 +73,74 @@ def make_waymo_like_cloud(rng, n_points: int):
         xyz = np.concatenate([xyz, xyz[:n_points - xyz.shape[0]] + 0.05])
     feats = rng.randn(n_points, 3).astype(np.float32)
     return np.concatenate([xyz.astype(np.float32), feats], 1)
+
+
+def bench_frame(cfg, n_points: int | None = None, seed: int = 0, cloud=None) -> dict:
+    """The padded numpy batch (B = 1) of one benchmark frame under `cfg`:
+    ``make_waymo_like_cloud`` of n_points from RandomState(seed), or `cloud`
+    ([N, 6] xyz + features), as (rho, phi, z, x, y, features) where
+    DATASET.USE_CYLINDER is set, voxelized, with random labels drawn next
+    from the same generator, padded to the RUNTIME capacities."""
+    rng = np.random.RandomState(seed)
+    pts = make_waymo_like_cloud(rng, n_points) if cloud is None else cloud
+    if cfg.DATASET.USE_CYLINDER:
+        pts = np.concatenate([cart2polar(pts), pts[:, :2], pts[:, 3:]], 1).astype(np.float32)
+    vg = VoxelGenerator(cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE)
+    coords, ids = vg.generate(pts)
+    labels = rng.randint(0, cfg.DATASET.NUM_CLASSES, pts.shape[0])
+    sample = dict(points=pts, voxel_coords=coords, point_voxel_ids=ids, point_labels=labels,
+                  voxel_labels=majority_voxel_labels(ids, labels, coords.shape[0]))
+    return collate_padded([pad_sample(sample, cfg.RUNTIME.MAX_POINTS_PER_SAMPLE,
+                                      cfg.RUNTIME.MAX_VOXELS_PER_SAMPLE)])
+
+
+def make_tree(root: str, n_frames: int, n_points: int) -> list:
+    """Write n_frames frames of one segment (frame f: pose translated f x
+    0.5 m in x, timestamp 1000000 + f) in the layout of
+    ``tools/waymo_parser.py``: 15-column lidar .npy (range-image index in
+    the last 3), [N, 2] labels a function of height and range, 4x4 pose
+    .txt, an instance bank, and the test-set frame list naming every
+    frame. Returns the frame names."""
+    rng = np.random.RandomState(0)
+    for sub in ('lidar', 'label', 'pose', 'instances'):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    names = []
+    for f in range(n_frames):
+        name = f'seg{f // 4:03d}-{1000000 + f}-{f % 4}'
+        names.append(name)
+        cloud = make_waymo_like_cloud(rng, n_points)      # [N, 6] xyz + feats
+        pts = np.zeros((n_points, 15), np.float32)
+        pts[:, :3] = cloud[:, :3]
+        pts[:, 3] = np.linalg.norm(cloud[:, :3], axis=1)  # range
+        pts[:, 4] = np.abs(cloud[:, 3])                   # intensity
+        pts[:, 5] = np.abs(cloud[:, 4])                   # elongation
+        # range-image index (col, row, return) as the parser writes it: a
+        # pixel of its own for each of the first 64 x 2650 points
+        pts[:, 12] = np.arange(n_points) % 2650
+        pts[:, 13] = np.arange(n_points) // 2650 % 64
+        pts[:, 14] = 0
+        np.save(os.path.join(root, 'lidar', name + '.npy'), pts)
+        lbl = np.zeros((n_points, 2), np.int64)
+        z, r = cloud[:, 2], pts[:, 3]
+        lbl[:, 1] = (1 + (z > -1.0).astype(np.int64) * 10
+                     + np.clip(r / 8, 0, 10).astype(np.int64))
+        np.save(os.path.join(root, 'label', name + '.npy'), lbl)
+        pose = np.eye(4)
+        pose[0, 3] = f * 0.5
+        np.savetxt(os.path.join(root, 'pose', name + '.txt'), pose)
+    bank = {3: [], 4: [], 10: []}
+    for lid in bank:
+        for _ in range(3):
+            cp = np.zeros((60, 6), np.float32)
+            cp[:, :3] = rng.uniform(-0.6, 0.6, (60, 3)) + [5.0, 5.0, -1.6]
+            bank[lid].append({'cluster_points': cp, 'cluster_height': 0.5})
+    with open(os.path.join(root, 'instances', 'lidar_instances_with_height.pkl'), 'wb') as fh:
+        pickle.dump(bank, fh)
+    with open(os.path.join(root, '3d_semseg_test_set_frames.txt'), 'w') as fh:
+        for name in names:
+            fi, ts, _ = name.split('-')
+            fh.write(f'{fi},{ts},x\n')
+    return names
 
 
 class SyntheticDataset:

@@ -49,7 +49,8 @@ def build_segmentor(cfg, device='cuda'):
         from .models.segmentors.segformer import Segformer
         return Segformer(spec).to(device), spec
     if name == 'spnet':
-        raise NotImplementedError('SPNet is not ported yet (ROADMAP A11)')
+        from .models.segmentors.spnet import SPNet
+        return SPNet(spec).to(device), spec
     raise NotImplementedError(name)
 
 

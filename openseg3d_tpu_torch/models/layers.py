@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.scatter import segment_max
+from ..ops.scatter import segment_max, segment_mean
 from .norm import MaskedBatchNorm
 
 
@@ -82,18 +82,31 @@ class PointEncoder(nn.Module):
         return torch.where(mask[..., None], x, 0)
 
 
-def vfe_max(features: torch.Tensor, point_voxel_ids: torch.Tensor,
-            num_voxels: int) -> torch.Tensor:
-    """Max-VFE: [B, P, C] point features scattered by sample-local voxel ids
-    [B, P] (-1 = unassigned) into [B, num_voxels, C]; empty voxels give 0.
-    The JAX package vmaps segment_max over samples; here each sample's ids
+def _vfe(reduce, features: torch.Tensor, point_voxel_ids: torch.Tensor,
+         num_voxels: int) -> torch.Tensor:
+    """[B, P, C] point features reduced by sample-local voxel ids [B, P]
+    (-1 = unassigned) into [B, num_voxels, C]; empty voxels give 0. The JAX
+    package vmaps the segment reduction over samples; here each sample's ids
     are offset into one flat segment range."""
     b, p, c = features.shape
     ok = (point_voxel_ids >= 0) & (point_voxel_ids < num_voxels)
     offs = (torch.arange(b, device=features.device) * num_voxels)[:, None]
     flat_ids = torch.where(ok, point_voxel_ids.long() + offs, -1).reshape(-1)
-    out = segment_max(features.reshape(b * p, c), flat_ids, b * num_voxels)
+    out = reduce(features.reshape(b * p, c), flat_ids, b * num_voxels)
     return out.reshape(b, num_voxels, c)
+
+
+def vfe_max(features: torch.Tensor, point_voxel_ids: torch.Tensor,
+            num_voxels: int) -> torch.Tensor:
+    """Max-VFE (``VFE(reduce='max')``) of the single-sweep branch."""
+    return _vfe(segment_max, features, point_voxel_ids, num_voxels)
+
+
+def vfe_mean(features: torch.Tensor, point_voxel_ids: torch.Tensor,
+             num_voxels: int) -> torch.Tensor:
+    """Mean-VFE (``VFE(reduce='mean')``) of the multi-sweep branch: the sum
+    of each voxel's rows over their count, in the features' dtype."""
+    return _vfe(segment_mean, features, point_voxel_ids, num_voxels)
 
 
 class FlattenSELayer(nn.Module):

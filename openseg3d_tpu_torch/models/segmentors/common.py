@@ -1,9 +1,9 @@
 """Shared segmentor scaffold: model spec, point branch, fusion head.
 
 Counterpart of ``openseg3d_tpu/models/segmentors/common.py``, whose module
-imports JAX, so ``ModelSpec`` is redefined here from the same config. Only the
-single-sweep max-VFE branch without image features is ported; multi-sweep
-(mean VFE) and DeepFusion raise until they are.
+imports JAX, so ``ModelSpec`` is redefined here from the same config. The
+single-sweep max-VFE and the multi-sweep mean-VFE branches are ported;
+DeepFusion (image features) raises until it is.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from torch import nn
 
 from ...config import ConfigDict, grid_size
 from ...ops.scatter import voxel_to_point
-from ..layers import FlattenSELayer, LinearBNReLU, PointEncoder, dense, dropout, vfe_max
+from ..layers import (FlattenSELayer, LinearBNReLU, PointEncoder, dense, dropout, vfe_max,
+                      vfe_mean)
 from ..backbones.sparse_unet import stage_capacities
 
 
@@ -111,25 +112,35 @@ class SegmentorHead(nn.Module):
 
 
 class PointBranch(nn.Module):
-    """Point MLP + max-VFE voxelization, the preamble of the segmentor."""
+    """Point MLP + VFE voxelization, the preamble of both segmentors.
+
+    Single sweep: the max over each voxel's current points of their encoded
+    features. Multi-sweep: the mean of the raw points of every sweep
+    (``point_mask``, history included), in float32, then cast to the compute
+    dtype; the backbone's stem then takes ``dim_point`` channels
+    (``voxel_channels``)."""
 
     def __init__(self, spec: ModelSpec, point_feature_channel: int = 64):
         super().__init__()
-        if spec.use_multi_sweeps:
-            raise NotImplementedError('multi-sweep (mean VFE) is not ported yet')
         self.spec = spec
         self.PointEncoder_0 = PointEncoder(spec.dim_point, point_feature_channel)
+        self.voxel_channels = spec.dim_point if spec.use_multi_sweeps else point_feature_channel
 
     def forward(self, batch):
+        points = batch['points']
         point_mask = batch['point_mask']
         cur_mask = batch['cur_point_mask'] & point_mask
         vids = batch['point_voxel_ids']           # sample-local slots
+        v_cap = batch['voxel_coords'].shape[1]
+        dt = self.spec.dtype
         # compute dtype boundary: everything downstream runs in
         # RUNTIME.COMPUTE_DTYPE; params stay float32
-        point_per_features = self.PointEncoder_0(batch['points'].to(self.spec.dtype),
-                                                 cur_mask)
-        voxel_features = vfe_max(point_per_features, torch.where(cur_mask, vids, -1),
-                                 batch['voxel_coords'].shape[1])
+        point_per_features = self.PointEncoder_0(points.to(dt), cur_mask)
+        if self.spec.use_multi_sweeps:
+            src = torch.where(point_mask[..., None], points, 0)
+            voxel_features = vfe_mean(src, torch.where(point_mask, vids, -1), v_cap).to(dt)
+        else:
+            voxel_features = vfe_max(point_per_features, torch.where(cur_mask, vids, -1), v_cap)
         return point_per_features, voxel_features, cur_mask
 
 

@@ -26,7 +26,7 @@ class Segformer(nn.Module):
         self.spec = spec
         self.PointBranch_0 = PointBranch(spec, point_feature_channel)
         self.PointTransformer_0 = PointTransformer(
-            spec, point_feature_channel, voxel_feature_channel)
+            spec, self.PointBranch_0.voxel_channels, voxel_feature_channel)
         self.SegmentorHead_0 = SegmentorHead(
             point_feature_channel + voxel_feature_channel, spec.num_classes)
 

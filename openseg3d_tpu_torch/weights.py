@@ -10,8 +10,9 @@ name:
   * ``nn.ModuleList``: an ``nn.scan`` over layers; every leaf below it is
     stacked on axis 0, and layer i takes slice i;
   * anything else: parameters and buffers by their own names (sparse-conv
-    ``kernel [27, Cin, Cout]`` as it is, ``in_proj_kernel [C, 3C]``,
-    ``in_proj_bias``, ``tau``, BN ``scale``/``bias``/``mean``/``var``).
+    ``kernel [27, Cin, Cout]`` as it is, OCR's ``transform_kernel`` too,
+    ``in_proj_kernel [C, 3C]``, ``in_proj_bias``, ``tau``, BN
+    ``scale``/``bias``/``mean``/``var``).
 Any leaf left unused, any tensor left unset, and any shape mismatch raises.
 
 ``to_flax_variables`` is the inverse: the model's parameters (or their
@@ -34,6 +35,7 @@ import torch
 from torch import nn
 
 from .models.norm import MaskedBatchNorm
+from .models.ocr import OCRLayer
 from .models.sparse_modules import SparseConv
 from .models.swformer import WindowAttention
 
@@ -99,7 +101,7 @@ def _export(module: nn.Module, prefix: tuple, grads: bool) -> dict:
     if isinstance(module, nn.ModuleList):
         per_layer = [_export(child, prefix, grads) for child in module]
         return {path: (np.stack([layer[path][0] for layer in per_layer]), kind)
-                for path, (_, kind) in per_layer[0].items()}
+                for path, (_, kind) in (per_layer[0] if per_layer else {}).items()}
 
     def value(t):
         if not grads:
@@ -163,6 +165,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 mod.weight.copy_(normal(mod.weight.shape, math.sqrt(2.0 / mod.in_features)))
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, OCRLayer):
+                k3, cin, _ = mod.transform_kernel.shape
+                mod.transform_kernel.copy_(normal(mod.transform_kernel.shape,
+                                                  math.sqrt(2.0 / (k3 * cin))))
             elif isinstance(mod, SparseConv):
                 k3, cin, _ = mod.kernel.shape
                 mod.kernel.copy_(normal(mod.kernel.shape, math.sqrt(2.0 / (k3 * cin))))

@@ -6,8 +6,8 @@ RandomState(seed + i), the shuffle from the epoch, dropout from (seed, step),
 so on one CPU every number repeats exactly); eval without TTA gives the
 histogram of a direct eval step; eval with the 36-variant TTA runs (on a
 smaller derived config: 36 forwards at the smoke size cost ~40 CPU-seconds);
-and what is not ported raises. Torch runs on 2 threads here: the suite runs
-several test processes side by side."""
+the SPNet config trains and evaluates; and what is not ported raises. Torch
+runs on 2 threads here: the suite runs several test processes side by side."""
 
 import os
 import shutil
@@ -148,6 +148,26 @@ def test_eval_with_tta(tmp_path):
         eval_tool.main(argv + ['--tta_batch', '5'])
 
 
+def test_tools_accept_the_spnet_config(tmp_path):
+    """configs/synthetic_accuracy_spnet.yaml's model (SPNet, drop path
+    0.05) through train and eval, on a small range and capacity: one step,
+    a checkpoint holding the SPNet's tensors, and eval of that checkpoint."""
+    cfg_file = tmp_path / 'spnet.yaml'
+    text = open(os.path.join(REPO, 'configs', 'synthetic_accuracy_spnet.yaml')).read()
+    cfg_file.write_text(text + 'DATASET: {POINT_CLOUD_RANGE: [-3.2, -3.2, -0.8, 3.2, 3.2, 0.8], '
+                        'VOXEL_SIZE: [0.2, 0.2, 0.2]}\n'
+                        'RUNTIME: {MAX_POINTS_PER_SAMPLE: 1024, MAX_VOXELS_PER_SAMPLE: 512, '
+                        'COMPUTE_DTYPE: float32}\n')
+    argv = ['--cfg_file', str(cfg_file), '--synthetic', '--synthetic_frames', '1',
+            '--device', 'cpu', '--save_dir', str(tmp_path)]
+    hist = train_tool.main(argv + ['--batch_size', '1', '--num_workers', '0', '--epochs', '1',
+                                   '--no_validate', '--log_iter_interval', '1'])
+    assert len(hist['train']) == 1 and np.isfinite(hist['train'][0][3])
+    assert 'SparseUnet_0.OCRLayer_0.transform_kernel' in _payload(tmp_path / 'epoch_1.pt')['model']
+    result = eval_tool.main(argv + ['--no_tta'])
+    assert int(result['hist'].sum()) == 1024 and np.isfinite(result['mIOU'])
+
+
 def test_what_is_not_ported_raises(tmp_path):
     with pytest.raises(NotImplementedError, match='A14'):
         eval_tool.main(['--synthetic', '--tta_device', '--device', 'cpu',
@@ -156,9 +176,6 @@ def test_what_is_not_ported_raises(tmp_path):
         _train(tmp_path, '--num_devices', '2')
     with pytest.raises(NotImplementedError, match='A10'):
         _train(tmp_path, '--launcher', 'jax')
-    with pytest.raises(NotImplementedError, match='A11'):
-        train_tool.main(['--cfg_file', os.path.join(REPO, 'configs', 'synthetic_accuracy_spnet.yaml'),
-                         *TRAIN[2:], '--save_dir', str(tmp_path)])
     if torch.cuda.is_available():
         return
     # the GPU is the default everywhere, and there is no fallback to the CPU

@@ -54,6 +54,7 @@ from openseg3d_tpu.models.optim import build_schedule as jax_build_schedule
 from openseg3d_tpu_torch import engine
 from openseg3d_tpu_torch.data.batch import to_device
 from openseg3d_tpu_torch.engine import TrainState, build_segmentor, make_train_step
+from openseg3d_tpu_torch.models.ocr import OCRLayer
 from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
 from openseg3d_tpu_torch.models.segmentors.common import SegmentorHead
 from openseg3d_tpu_torch.models.swformer import MLP, WindowAttention
@@ -83,7 +84,7 @@ def _no_dropout(model):
     for m in model.modules():
         if isinstance(m, WindowAttention):
             m.attn_drop = 0.0
-        elif isinstance(m, (MLP, SegmentorHead)):
+        elif isinstance(m, (MLP, SegmentorHead, OCRLayer)):
             m.drop = 0.0
 
 
@@ -118,12 +119,14 @@ def _leaf_errors(mine, ref):
             for p in b}
 
 
-def _step_both(monkeypatch, cfg):
+def _step_both(monkeypatch, cfg, nb=None):
     """One train step of the port and of JAX from the same random weights
-    on the same batch. Returns (port metrics, port grads, new stats, new
-    params, JAX loss, grads, new stats, new params, the initial params)."""
+    on the same batch (default: two synthetic samples). Returns (port
+    metrics, port grads, new stats, new params, JAX loss, grads, new stats,
+    new params, the initial params)."""
     jmodel, jspec = jax_engine.build_segmentor(cfg)
-    nb = synthetic_batch(cfg, batch_size=2, seed=3)
+    if nb is None:
+        nb = synthetic_batch(cfg, batch_size=2, seed=3)
     jb = {k: jnp.asarray(v) for k, v in nb.items() if k != 'batch_size'}
     shapes = jax.eval_shape(functools.partial(jmodel.init, train=False),
                             {'params': jax.random.PRNGKey(0)}, jb)
