@@ -113,13 +113,15 @@ Phases (each asserts or raises; nothing is caught):
      2 train steps through WaymoDataset on a tree in
      the offline parser's format (data/synthetic.make_tree), instance paste
      and PolarMix on; (d) tools.eval on (a)'s checkpoints, without TTA on 4
-     frames and with the 36-variant host TTA on 1 frame: finite mIoUs;
-     --tta_device raises.
+     frames, with the 36-variant host TTA on 1 frame and with --tta_device
+     (--tta_batch 1) on 1 frame: finite mIoUs, B1 launched 36 x 105 times
+     by the device TTA.
   A. full capacity against the JAX package: for each reference file of
      openseg3d_tpu_torch/parity_data/ (written by the JAX package's own eval
      step on a CPU: configs/waymo_one_sweep.yaml, waymo_multi_sweeps.yaml,
-     and waymo_one_sweep.yaml with SPNet; seeded numpy weights; the bench
-     frame or a 3-sweep frame), the port's eval step with the loss on the
+     waymo_one_sweep.yaml with SPNet, and waymo_one_sweep.yaml with image
+     features (DeepFusion, synthetic features); seeded numpy weights; the
+     bench frame or a 3-sweep frame), the port's eval step with the loss on the
      card in float32 (B1's FMA body) and in bfloat16, held to
      parity.compare_with_reference's gates: float32 sampled logits within
      1e-3 x max(1, max|logit|), argmax agreement >= 99.9%, the histogram
@@ -142,12 +144,31 @@ Phases (each asserts or raises; nothing is caught):
      peak and busy share; then tools.train on
      configs/synthetic_accuracy_spnet.yaml as 7a: a falling loss, validation
      mIoU >= 0.15;
+  E. device TTA (tools/eval.tta_device_group) on the bench frame, bf16,
+     full width and capacity: each of the 36 variants' device_voxelize on
+     the card bit-equal to its plain CPU run on the same transformed points;
+     the points whose voxel differs from the host path, at most
+     TTA_VOXEL_DIFFER a variant; one frame
+     of device TTA (--tta_batch 1) against one frame of host TTA: seconds
+     each, B1 launched 36 x 105 times, argmax agreement >= TTA_AGREEMENT;
+  F. DeepFusion (configs/waymo_one_sweep.yaml with DATASET.USE_IMAGE_FEATURE,
+     the bench frame with synthetic image features): the Segformer's bf16
+     eval step and train step as in C (launch counts, forward and step ms,
+     peak, busy share), with exactly two bf16 index_add_ in the step (the
+     devoxelize gather's backward and DeepFusion's neighbour gather's); the
+     share of points whose candidate shell yields fewer than 8 and 16
+     neighbours by range band; SPNet with image features: an eval step and
+     a train step, finite, with launch counts;
   B. the rehearsal through the port's tools on a tree in the offline
      parser's format with a test-set frame list (data/synthetic.make_tree):
      train 2 steps, eval, then tools.test under the stand-in protos
      (OPENSEG3D_ALLOW_WOD_STUB=1); the decoded submission holds each frame's
      eval-forward argmax over its current points, scattered through
-     points_ri.
+     points_ri; then the same on a tree with synthetic image_feature/ files
+     and DATASET.USE_IMAGE_FEATURE, whose checkpoint holds DeepFusion's
+     tensors; there also 2 epochs with --deterministic and the
+     augmentation off, and epoch 2 again from epoch_1.pt must give
+     epoch_2.pt as before (as 7b).
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1.
 Every time printed comes with the card's name and power limit.
@@ -173,6 +194,13 @@ for _name in ('jax', 'jaxlib', 'flax', 'optax', 'openseg3d_tpu', 'bench'):
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_POINTS = 163840            # one bench.py frame
+IMAGE_FEATURES = {'USE_IMAGE_FEATURE': True, 'DIM_IMAGE_FEATURE': 28}
+# device TTA against host TTA (phase E): argmax agreement over the frame,
+# and the points of one variant whose voxel may differ from the host path's
+# (float32 rotation against the host's float64 moves boundary points; a
+# wrong flip, scale or angle moves nearly all of them)
+TTA_AGREEMENT = 0.99
+TTA_VOXEL_DIFFER = 50
 TINY_OVERRIDES = {
     'DATASET': {'POINT_CLOUD_RANGE': [-3.2, -3.2, -0.8, 3.2, 3.2, 0.8],
                 'VOXEL_SIZE': [0.2, 0.2, 0.2]},
@@ -1353,12 +1381,16 @@ def run_cli(smi, per_step):
               flush=True)
         assert math.isfinite(res_d['mIOU']) and math.isfinite(res_t['mIOU'])
         assert int(res_d['hist'].sum()) == 4 * N_POINTS and int(res_t['hist'].sum()) == N_POINTS
-        try:
-            eval_tool.main(base + ['--tta_device'])
-            raise AssertionError('--tta_device did not raise')
-        except NotImplementedError as e:
-            print(f'(d) --tta_device raises: {e}', flush=True)
-        out['eval'] = dict(no_tta=res_d['mIOU'], tta=res_t['mIOU'], no_tta_s=secs, tta_s=secs_t)
+        counters['B1'].launches = 0
+        res_v, secs_v = timed(eval_tool.main, base + ['--synthetic_frames', '1', '--tta_device',
+                                                      '--tta_batch', '1'])
+        b1 = counters['B1'].launches
+        print(f'(d) --tta_device, 1 frame: mIoU {res_v["mIOU"]:.4f} (host TTA '
+              f'{res_t["mIOU"]:.4f}) in {secs_v:.1f} s, {b1} B1 launches; on {smi}', flush=True)
+        assert math.isfinite(res_v['mIOU']) and int(res_v['hist'].sum()) == N_POINTS
+        assert b1 == 36 * per_step, b1
+        out['eval'] = dict(no_tta=res_d['mIOU'], tta=res_t['mIOU'], tta_device=res_v['mIOU'],
+                           no_tta_s=secs, tta_s=secs_t, tta_device_s=secs_v)
     return out
 
 
@@ -1396,7 +1428,7 @@ def check_references(smi):
     return out
 
 
-def run_variant(label, cfg, batch, smi, timed=True):
+def run_variant(label, cfg, batch, smi, timed=True, index_adds=None):
     """Phases C and D: one configuration's full-width, full-capacity bf16
     eval forward and train step on `batch` (seeded random weights). Checks
     finite logits and loss, the histogram's count, finite gradients, the
@@ -1406,8 +1438,9 @@ def run_variant(label, cfg, batch, smi, timed=True):
     (the OCR transform's included) and two permute_rows backwards per
     encoder layer; with `timed`, the median forward and step ms, peak memory,
     the device-busy share of one profiled forward and step, and the step's
-    bf16 index_add_ kernels (at most one: the devoxelize gather's backward).
-    Returns a dict of the numbers."""
+    bf16 index_add_ kernels: at most one (the devoxelize gather's backward),
+    or exactly `index_adds` where it is given. Returns a dict of the
+    numbers."""
     import torch
     from openseg3d_tpu_torch.engine import (TrainState, build_segmentor, make_eval_step,
                                             make_forward, make_train_step)
@@ -1482,7 +1515,10 @@ def run_variant(label, cfg, batch, smi, timed=True):
     print(f'({label}) profiled step, kernels with the most device time (name, ms, count): '
           f'{top_kernels(events, 8)}', flush=True)
     index_add_bf16 = named_kernels(events, 'indexFuncLargeIndex', 'BFloat16')
-    assert index_add_bf16[1] <= 1, index_add_bf16
+    if index_adds is None:
+        assert index_add_bf16[1] <= 1, index_add_bf16
+    else:
+        assert index_add_bf16[1] == index_adds, (index_add_bf16, index_adds)
     out.update(forward_ms=statistics.median(fwd), forward_peak=fwd_peak, forward_busy=fwd_busy,
                step_ms=statistics.median(steps[1:]), step_peak=step_peak, step_busy=step_busy,
                index_add_bf16=index_add_bf16)
@@ -1597,7 +1633,7 @@ def run_spnet_learning(smi):
     return dict(first_loss=first, last_loss=last, mious=mious, step_ms=step_ms, seconds=secs)
 
 
-def run_rehearsal(smi):
+def run_rehearsal(smi, image_feature_dim=None):
     """Phase B: the port's command-line tools on a tree in the offline
     parser's format with a test-set frame list (data/synthetic.make_tree,
     bench-frame clouds): tools.train for 2 steps on
@@ -1605,7 +1641,13 @@ def run_rehearsal(smi):
     with OPENSEG3D_ALLOW_WOD_STUB=1. The decoded submission holds every
     testing frame, and each frame's range images equal the eval forward's
     argmax over its current points (the newest checkpoint's weights)
-    scattered through points_ri."""
+    scattered through points_ri. With image_feature_dim: the tree has
+    image_feature/ files (synthetic) and the config DATASET.USE_IMAGE_FEATURE,
+    so DeepFusion trains, evaluates and serves; the checkpoint must hold its
+    leaves; then 2 epochs with --deterministic and the augmentation off,
+    and epoch 2 resumed from epoch_1.pt must end as the uninterrupted run
+    did (as 7b: the same counts, every tensor within 1e-6 of the other's
+    largest)."""
     import numpy as np
     import torch
     from openseg3d_tpu_torch.config import cfg_from_file
@@ -1622,14 +1664,47 @@ def run_rehearsal(smi):
     cfg_file = os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml')
     n_frames, device = 2, 'cuda'
     with tempfile.TemporaryDirectory() as tmp:
+        if image_feature_dim:
+            import yaml
+            with open(cfg_file) as f:
+                text = yaml.safe_load(f)
+            text['DATASET'].update(USE_IMAGE_FEATURE=True, DIM_IMAGE_FEATURE=image_feature_dim)
+            cfg_file = os.path.join(tmp, 'image.yaml')
+            with open(cfg_file, 'w') as f:
+                yaml.safe_dump(text, f)
         tree, save = os.path.join(tmp, 'tree'), os.path.join(tmp, 'run')
         t0 = time.perf_counter()
-        names = make_tree(tree, n_frames, N_POINTS)
+        names = make_tree(tree, n_frames, N_POINTS, image_feature_dim=image_feature_dim)
         hist = train_tool.main(['--cfg_file', cfg_file, '--data_dir', tree, '--batch_size', '1',
                                 '--epochs', '1', '--num_workers', '2', '--no_validate',
                                 '--log_iter_interval', '1', '--seed', '0', '--save_dir', save])
         losses = [r[3] for r in hist['train']]
         assert len(losses) == n_frames and all(np.isfinite(losses)), losses
+        resumed = ''
+        if image_feature_dim:
+            # resume as 7b, with the augmentation off: its draws come from the
+            # global np.random, which a resumed run starts afresh
+            text['DATASET']['AUG_DATA'] = False
+            det_cfg, det = os.path.join(tmp, 'no_aug.yaml'), os.path.join(tmp, 'det')
+            with open(det_cfg, 'w') as f:
+                yaml.safe_dump(text, f)
+            argv = ['--cfg_file', det_cfg, '--data_dir', tree, '--batch_size', '1',
+                    '--epochs', '2', '--num_workers', '0', '--no_validate',
+                    '--log_iter_interval', '1', '--seed', '0', '--deterministic',
+                    '--save_dir', det]
+            train_tool.main(argv)
+            path = os.path.join(det, 'epoch_2.pt')
+            first_run = torch.load(path, map_location='cpu', weights_only=True)
+            os.remove(path)
+            hist_r = train_tool.main(argv + ['--auto_resume'])
+            assert [r[0] for r in hist_r['train']] == [2] * n_frames, hist_r['train']
+            worst = assert_close_payloads(torch.load(path, map_location='cpu',
+                                                     weights_only=True), first_run, 1e-6)
+            resumed = (f'; 2 epochs without augmentation, epoch 2 resumed with '
+                       f'--deterministic: worst relative difference {worst[0]:.3g} ({worst[1]})')
+        held = [k for k in torch.load(latest_checkpoint(save), map_location='cpu',
+                                      weights_only=True)['model'] if 'DeepFusionBlock_0' in k]
+        assert len(held) == (6 if image_feature_dim else 0), held
         res = eval_tool.main(['--cfg_file', cfg_file, '--data_dir', tree, '--save_dir', save,
                               '--no_tta'])
         assert np.isfinite(res['mIOU']) and int(res['hist'].sum()) == n_frames * N_POINTS
@@ -1657,11 +1732,143 @@ def run_rehearsal(smi):
             assert np.array_equal(lasers[0][1], want[0]) and np.array_equal(lasers[0][2], want[1])
             labelled += int((want[0][..., 1] > 0).sum() + (want[1][..., 1] > 0).sum())
         assert labelled == n_frames * N_POINTS, labelled     # a pixel per current point
-    print(f'(B) rehearsal: train {len(losses)} steps (losses {losses}), eval mIoU '
-          f'{res["mIOU"]:.4f}, test: {len(frames)} frames submitted ({method}), {labelled} '
-          f'range-image pixels labelled, each frame equal to the eval forward\'s argmax; '
-          f'{secs:.1f} s on {smi}', flush=True)
+    print(f'(B) rehearsal{" with image features" if image_feature_dim else ""}: train '
+          f'{len(losses)} steps (losses {losses}){resumed}, checkpoint DeepFusion tensors '
+          f'{len(held)}, '
+          f'eval mIoU {res["mIOU"]:.4f}, test: {len(frames)} frames submitted ({method}), '
+          f'{labelled} range-image pixels labelled, each frame equal to the eval forward\'s '
+          f'argmax; {secs:.1f} s on {smi}', flush=True)
     return dict(losses=losses, miou=res['mIOU'], frames=len(frames), seconds=secs)
+
+
+def run_device_tta(cfg, smi, per_forward):
+    """Phase E: device TTA on the bench frame at full width and capacity,
+    bf16, seeded random weights. The 36 variants (3 scales x 3 angles x
+    flip_x x flip_y) of the raw cloud, padded to MAX_POINTS_PER_SAMPLE:
+      * each variant's device_voxelize on the card bit-equal (coords, mask,
+        ids, count) to the same function's plain run on the CPU on the same
+        transformed points; the points whose voxel differs from the host
+        path's (_prepare_variant and the host voxelizer, whose
+        float64-then-float32 rotation may move a point across a voxel
+        boundary) at most TTA_VOXEL_DIFFER a variant;
+      * one frame of host TTA (inline: _prepare_variant, one forward a
+        variant) and of device TTA (tools/eval.tta_device_group, --tta_batch
+        1), each timed with its argmax read back; B1 launched
+        per_forward x 36 times by the device TTA; their argmax agreement over
+        the points both score at least TTA_AGREEMENT.
+    Returns a dict of the numbers."""
+    import numpy as np
+    import torch
+    from openseg3d_tpu_torch.data.batch import to_device
+    from openseg3d_tpu_torch.data.synthetic import SyntheticDataset, bench_cloud
+    from openseg3d_tpu_torch.data.test_time_aug import MultiScaleFlipAug, _prepare_variant
+    from openseg3d_tpu_torch.engine import build_segmentor, make_forward
+    from openseg3d_tpu_torch.ops.attention import window_attention_packed
+    from openseg3d_tpu_torch.ops.voxelize import device_voxelize
+    from openseg3d_tpu_torch.tools.eval import (transform_variants, tta_device_group,
+                                                variant_params)
+    from openseg3d_tpu_torch.weights import init_weights
+
+    raw = bench_cloud(cfg, N_POINTS)            # the bench frame's raw cloud and labels
+    cloud = raw['points']
+    dataset = SyntheticDataset(cfg, 1, mode='validation')      # the host path's voxelize, pad
+    tta = MultiScaleFlipAug(dataset, scales=[0.95, 1.0, 1.05],
+                            angles=[-np.pi / 4, 0.0, np.pi / 4], flip_x=True, flip_y=True)
+    variants = list(tta._variant_params())
+    p_cap, v_cap = int(cfg.RUNTIME.MAX_POINTS_PER_SAMPLE), int(cfg.RUNTIME.MAX_VOXELS_PER_SAMPLE)
+    vs, pr = cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE
+    points1 = torch.zeros((p_cap, cloud.shape[1]), device='cuda')
+    points1[:N_POINTS] = torch.from_numpy(cloud).cuda()
+    pmask1 = torch.arange(p_cap, device='cuda') < N_POINTS
+    params = torch.from_numpy(variant_params(tta)).cuda()
+    model, spec = build_segmentor(cfg, 'cuda')
+    init_weights(model, torch.Generator().manual_seed(0))
+    forward = make_forward(model)
+
+    def point_coords(coords, ids):
+        """[P, 3] each point's voxel coords, -1 where it has none."""
+        return torch.where((ids >= 0)[:, None], coords[ids.clamp(min=0).long()], -1)
+
+    # host TTA, inline
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, host_coords = None, []
+    for scale, angle, fx, fy in variants:
+        b = _prepare_variant(dataset, raw, scale, angle, fx, fy)
+        ps = torch.softmax(forward(to_device(b, 'cuda')).float(), dim=-1).sum(dim=0)
+        acc = ps if acc is None else acc + ps
+        host_coords.append((b['voxel_coords'][0], b['point_voxel_ids'][0]))
+    host_preds = acc.argmax(dim=-1).cpu().numpy()
+    host_s = time.perf_counter() - t0
+    host_mask = b['point_mask'][0] & b['cur_point_mask'][0]
+
+    # device TTA, --tta_batch 1
+    window_attention_packed.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = None
+    for i in range(len(variants)):
+        ps = tta_device_group(model, spec, points1, pmask1, params[i:i + 1], v_cap)
+        acc = ps if acc is None else acc + ps
+    dev_preds = acc.argmax(dim=-1).cpu().numpy()
+    dev_s = time.perf_counter() - t0
+    launches = window_attention_packed.launches
+    both = host_mask & pmask1.cpu().numpy()
+    agreement = float((dev_preds[both] == host_preds[both]).mean())
+
+    # every variant's voxelization: card against the CPU, and against the host path
+    differ, voxels = [], []
+    for i in range(len(variants)):
+        pts = transform_variants(points1, params[i:i + 1])
+        got = device_voxelize(pts, pmask1[None], vs, pr, v_cap)
+        want = device_voxelize(pts.cpu(), pmask1[None].cpu(), vs, pr, v_cap)
+        for name, g, w in zip(('coords', 'mask', 'ids', 'num_voxels'), got, want):
+            assert torch.equal(g.cpu(), w), (i, variants[i], name)
+        voxels.append(int(got[3][0]))
+        hc, hi = (torch.from_numpy(a) for a in host_coords[i])
+        dev = point_coords(got[0][0].cpu(), got[2][0].cpu())
+        differ.append(int((dev != point_coords(hc, hi)).any(dim=-1).sum()))
+    print(f'(E) device_voxelize on the card bit-equal to its CPU run on all {len(variants)} '
+          f'variants; voxels per variant {min(voxels)}-{max(voxels)} (capacity {v_cap}); points '
+          f'whose voxel differs from the host path: {differ} (total {sum(differ)} of '
+          f'{len(variants) * N_POINTS}; gate {TTA_VOXEL_DIFFER} a variant)', flush=True)
+    print(f'(E) one frame: host TTA (inline) {host_s:.2f} s, device TTA {dev_s:.2f} s; B1 '
+          f'launches {launches} (expected {36 * per_forward}); argmax agreement {agreement:.6f} '
+          f'over {int(both.sum())} points (gate {TTA_AGREEMENT}); on {smi}', flush=True)
+    assert launches == 36 * per_forward, launches
+    assert agreement >= TTA_AGREEMENT, agreement
+    assert max(differ) <= TTA_VOXEL_DIFFER, differ
+    return dict(host_s=host_s, device_s=dev_s, agreement=agreement, launches=launches,
+                differ=sum(differ), voxels=(min(voxels), max(voxels)))
+
+
+def knn_shell(spec, batch, smi):
+    """Phase F: the share of the frame's valid points whose candidate shell
+    (DeepFusion's voxel-bucket k-NN, kernel FUSION_KNN_KERNEL_SIZE, bucket
+    FUSION_KNN_BUCKET_CAP) yields fewer than 8 and 16 neighbours, by range
+    band (NOTES_NEXT.md's table), and the search's device ms. Printed."""
+    import torch
+    from openseg3d_tpu_torch.models.deep_fusion import N_NEIGHBORS
+    from openseg3d_tpu_torch.ops.knn import voxel_bucket_knn
+    cur = batch['point_mask'] & batch['cur_point_mask']
+
+    def search():
+        return voxel_bucket_knn(N_NEIGHBORS, batch['points'][..., :3].contiguous(), cur, cur,
+                                batch['point_voxel_ids'], batch['voxel_coords'],
+                                spec.spatial_shape, bucket_cap=spec.fusion_knn_bucket_cap,
+                                kernel_size=spec.fusion_knn_kernel_size)[0]
+    ids = search()
+    ms = device_ms(search, 3)
+    found = (ids >= 0).sum(dim=-1)[cur]
+    rng = batch['points'][..., :2].norm(dim=-1)[cur]
+    rows = []
+    for lo, hi in ((0, 20), (20, 40), (40, 75)):
+        sel = (rng >= lo) & (rng < hi)
+        share = [round(float((found[sel] < k).float().mean()), 3) for k in (8, 16)]
+        rows.append((f'{lo}-{hi} m', int(sel.sum()), *share))
+    print(f'(F) DeepFusion candidate shell: (range, points, share < 8, share < 16) {rows}; '
+          f'voxel-bucket k-NN {ms:.3f} ms of device time; on {smi}', flush=True)
+    return rows, ms
 
 
 def main() -> int:
@@ -1787,6 +1994,7 @@ def main() -> int:
     # C. multi-sweep (the 3-sweep reference frame) and cylinder
     from openseg3d_tpu_torch import parity
     from openseg3d_tpu_torch.data.batch import to_device
+    from openseg3d_tpu_torch.data.synthetic import bench_frame
     t0 = time.perf_counter()
     ms_cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_multi_sweeps.yaml'))
     multi = run_variant('C multi-sweep', ms_cfg,
@@ -1805,8 +2013,30 @@ def main() -> int:
     spnet_learning = run_spnet_learning(smi)
     print(f'phase D: {time.perf_counter() - t0:.1f} s', flush=True)
 
-    # B. the rehearsal: train, eval and test through the port's tools
+    # E. device TTA on the bench frame against host TTA
+    t0 = time.perf_counter()
+    dtta = run_device_tta(cfg, smi, expected)
+    print(f'phase E: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # F. DeepFusion (synthetic image features) on the bench frame: Segformer, SPNet
+    t0 = time.perf_counter()
+    df_cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'),
+                           overrides={'DATASET': IMAGE_FEATURES})
+    df_batch = to_device(bench_frame(df_cfg, N_POINTS, image_features=True), device)
+    fusion = run_variant('F DeepFusion', df_cfg, df_batch, smi, index_adds=2)
+    shell, knn_ms = knn_shell(ModelSpec.from_config(df_cfg), df_batch, smi)
+    df_sp_cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'),
+                              overrides={'DATASET': IMAGE_FEATURES,
+                                         'MODEL': {'SEGMENTOR': 'spnet'}})
+    run_variant('F SPNet DeepFusion', df_sp_cfg, df_batch, smi, timed=False)
+    print(f'phase F: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # B. the rehearsal: train, eval and test through the port's tools, then
+    # the same with image features
+    t0 = time.perf_counter()
     rehearsal = run_rehearsal(smi)
+    run_rehearsal(smi, image_feature_dim=IMAGE_FEATURES['DIM_IMAGE_FEATURE'])
+    print(f'phase B: {time.perf_counter() - t0:.1f} s', flush=True)
 
     kp, pp = tr['prof'], tr['plain_prof']
     rows = [
@@ -1828,11 +2058,14 @@ def main() -> int:
         print(f'reference {name}: ' + '; '.join(
             f'{dt} agreement {m["agreement"]:.6f}, logits {m["logit_err"]:.3g}, loss rel '
             f'{m["loss_rel"]:.3g}' for dt, m in res.items()), flush=True)
-    for name, v in (('multi-sweep', multi), ('SPNet', spnet)):
+    for name, v in (('multi-sweep', multi), ('SPNet', spnet), ('DeepFusion', fusion)):
         print(f'{name} bf16: forward {v["forward_ms"]:.2f} ms (peak '
               f'{v["forward_peak"] / 2**30:.2f} GiB, busy {v["forward_busy"]:.3f}), train step '
               f'{v["step_ms"]:.2f} ms (peak {v["step_peak"] / 2**30:.2f} GiB, busy '
               f'{v["step_busy"]:.3f}), on {smi}', flush=True)
+    print(f'device TTA: {dtta["device_s"]:.2f} s a frame (host TTA {dtta["host_s"]:.2f} s), '
+          f'argmax agreement {dtta["agreement"]:.6f}; DeepFusion step bf16 index_add_ (ms, '
+          f'launches) {fusion["index_add_bf16"]}, k-NN {knn_ms:.3f} ms; on {smi}', flush=True)
     print(f'SPNet learning run: loss {spnet_learning["first_loss"]:.4f} -> '
           f'{spnet_learning["last_loss"]:.4f}, validation mIoU {spnet_learning["mious"]}; '
           f'rehearsal: {rehearsal["frames"]} frames submitted, equal to the eval argmax',

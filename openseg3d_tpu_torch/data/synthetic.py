@@ -9,12 +9,16 @@ them. ``tests/test_torch_data.py`` holds it equal to the original.
 
 ``make_waymo_like_cloud`` is a copy of ``bench.make_waymo_like_cloud``, the
 frame of the JAX package's benchmark, which ``chip_smoke.py`` runs through
-the port; ``bench_frame`` voxelizes and pads one such frame. ``make_tree`` follows ``tools/rehearsal.make_tree``: frames of
-that generator written in the offline parser's on-disk format, for the Waymo
+the port; ``bench_frame`` voxelizes and pads one such frame.
+``make_tree`` follows ``tools/rehearsal.make_tree``: frames of that
+generator written in the offline parser's on-disk format, for the Waymo
 reader, with the range-image index in the parser's column order (col, row,
 return; the rehearsal tool writes (0, col, row), which the submission writer
 reads as column 0, so that at most 128 of a frame's points reach the range
-image).
+image). Both can add synthetic per-point image features
+(``synthetic_image_features``) for the DeepFusion branch: real ones come
+from a 2D network (``tools/extract_image_feature.py``) whose weights the
+repository does not hold.
 """
 
 from __future__ import annotations
@@ -75,34 +79,70 @@ def make_waymo_like_cloud(rng, n_points: int):
     return np.concatenate([xyz.astype(np.float32), feats], 1)
 
 
-def bench_frame(cfg, n_points: int | None = None, seed: int = 0, cloud=None) -> dict:
-    """The padded numpy batch (B = 1) of one benchmark frame under `cfg`:
-    ``make_waymo_like_cloud`` of n_points from RandomState(seed), or `cloud`
-    ([N, 6] xyz + features), as (rho, phi, z, x, y, features) where
-    DATASET.USE_CYLINDER is set, voxelized, with random labels drawn next
-    from the same generator, padded to the RUNTIME capacities."""
+CAMERA_HALF_ANGLE = 2 * np.pi / 3
+
+
+def synthetic_image_features(rng, xyz: np.ndarray, dim: int) -> np.ndarray:
+    """[N, dim] float32 stand-ins for per-point 2D class scores: standard
+    normal from `rng` for the points a forward-looking camera rig sees
+    (azimuth |atan2(y, x)| <= 120 degrees, two thirds of a spinning lidar's
+    sweep) and all-zero rows, the reader's "no projection", behind."""
+    f = rng.standard_normal((xyz.shape[0], dim)).astype(np.float32)
+    f[np.abs(np.arctan2(xyz[:, 1], xyz[:, 0])) > CAMERA_HALF_ANGLE] = 0
+    return f
+
+
+def bench_cloud(cfg, n_points: int | None = None, seed: int = 0, cloud=None,
+                image_features: bool = False) -> dict:
+    """The raw benchmark frame: ``make_waymo_like_cloud`` of n_points from
+    RandomState(seed), or `cloud` ([N, 6] xyz + features), as `points`,
+    with random `point_labels` drawn next from the same generator, and with
+    `image_features` DIM_IMAGE_FEATURE synthetic ones drawn after them
+    (``synthetic_image_features``) as `point_image_features`."""
     rng = np.random.RandomState(seed)
     pts = make_waymo_like_cloud(rng, n_points) if cloud is None else cloud
+    raw = dict(points=pts, point_labels=rng.randint(0, cfg.DATASET.NUM_CLASSES, pts.shape[0]))
+    if image_features:
+        raw['point_image_features'] = synthetic_image_features(
+            rng, pts[:, :3], cfg.DATASET.DIM_IMAGE_FEATURE)
+    return raw
+
+
+def bench_frame(cfg, n_points: int | None = None, seed: int = 0, cloud=None,
+                image_features: bool = False) -> dict:
+    """The padded numpy batch (B = 1) of one benchmark frame under `cfg`:
+    ``bench_cloud``'s points, as (rho, phi, z, x, y, features) where
+    DATASET.USE_CYLINDER is set, voxelized, with its labels (and image
+    features), padded to the RUNTIME capacities."""
+    sample = bench_cloud(cfg, n_points, seed, cloud, image_features)
+    pts = sample['points']
     if cfg.DATASET.USE_CYLINDER:
         pts = np.concatenate([cart2polar(pts), pts[:, :2], pts[:, 3:]], 1).astype(np.float32)
     vg = VoxelGenerator(cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE)
     coords, ids = vg.generate(pts)
-    labels = rng.randint(0, cfg.DATASET.NUM_CLASSES, pts.shape[0])
-    sample = dict(points=pts, voxel_coords=coords, point_voxel_ids=ids, point_labels=labels,
-                  voxel_labels=majority_voxel_labels(ids, labels, coords.shape[0]))
+    sample.update(points=pts, voxel_coords=coords, point_voxel_ids=ids,
+                  voxel_labels=majority_voxel_labels(ids, sample['point_labels'],
+                                                     coords.shape[0]))
     return collate_padded([pad_sample(sample, cfg.RUNTIME.MAX_POINTS_PER_SAMPLE,
                                       cfg.RUNTIME.MAX_VOXELS_PER_SAMPLE)])
 
 
-def make_tree(root: str, n_frames: int, n_points: int) -> list:
+def make_tree(root: str, n_frames: int, n_points: int,
+              image_feature_dim: int | None = None) -> list:
     """Write n_frames frames of one segment (frame f: pose translated f x
     0.5 m in x, timestamp 1000000 + f) in the layout of
     ``tools/waymo_parser.py``: 15-column lidar .npy (range-image index in
     the last 3), [N, 2] labels a function of height and range, 4x4 pose
     .txt, an instance bank, and the test-set frame list naming every
-    frame. Returns the frame names."""
+    frame. With image_feature_dim, also image_feature/<frame>.npy as
+    ``tools/extract_image_feature.py`` saves it, a pickled {point index:
+    vector} of the points a camera sees, with ``synthetic_image_features``
+    from RandomState(1 + f) (the lidar files stay as without them).
+    Returns the frame names."""
     rng = np.random.RandomState(0)
-    for sub in ('lidar', 'label', 'pose', 'instances'):
+    subs = ('lidar', 'label', 'pose', 'instances') + (('image_feature',) if image_feature_dim
+                                                      else ())
+    for sub in subs:
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     names = []
     for f in range(n_frames):
@@ -128,6 +168,12 @@ def make_tree(root: str, n_frames: int, n_points: int) -> list:
         pose = np.eye(4)
         pose[0, 3] = f * 0.5
         np.savetxt(os.path.join(root, 'pose', name + '.txt'), pose)
+        if image_feature_dim:
+            feats = synthetic_image_features(np.random.RandomState(1 + f), cloud[:, :3],
+                                             image_feature_dim)
+            seen = np.flatnonzero(np.abs(feats).sum(1) > 0)
+            np.save(os.path.join(root, 'image_feature', name + '.npy'),
+                    {int(i): feats[i] for i in seen}, allow_pickle=True)
     bank = {3: [], 4: [], 10: []}
     for lid in bank:
         for _ in range(3):

@@ -1,9 +1,9 @@
 """Shared segmentor scaffold: model spec, point branch, fusion head.
 
 Counterpart of ``openseg3d_tpu/models/segmentors/common.py``, whose module
-imports JAX, so ``ModelSpec`` is redefined here from the same config. The
-single-sweep max-VFE and the multi-sweep mean-VFE branches are ported;
-DeepFusion (image features) raises until it is.
+imports JAX, so ``ModelSpec`` is redefined here from the same config: the
+single-sweep max-VFE and the multi-sweep mean-VFE branches, and the
+DeepFusion image-feature branch of the head.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from torch import nn
 
 from ...config import ConfigDict, grid_size
 from ...ops.scatter import voxel_to_point
+from ..deep_fusion import DeepFusionBlock
 from ..layers import (FlattenSELayer, LinearBNReLU, PointEncoder, dense, dropout, vfe_max,
                       vfe_mean)
 from ..backbones.sparse_unet import stage_capacities
@@ -144,8 +145,25 @@ class PointBranch(nn.Module):
         return point_per_features, voxel_features, cur_mask
 
 
-def fuse_and_classify(batch, point_per_features, voxel_features, cur_mask,
-                      head: SegmentorHead, rng=None):
-    """Devoxelize + head."""
-    pvf = voxel_to_point(voxel_features, batch['point_voxel_ids'])
-    return head(torch.cat([point_per_features, pvf], dim=-1), cur_mask, rng)
+def build_deep_fusion(spec: ModelSpec, fusion_channel: int) -> DeepFusionBlock | None:
+    """The image-feature branch where the config asks for it: its query is
+    the fusion features (fusion_channel wide), its output dim_image_feature
+    channels more for the head."""
+    if not spec.use_image_feature:
+        return None
+    return DeepFusionBlock(fusion_channel, spec.dim_image_feature,
+                           knn_kernel_size=spec.fusion_knn_kernel_size,
+                           knn_bucket_cap=spec.fusion_knn_bucket_cap)
+
+
+def fuse_and_classify(spec: ModelSpec, batch, point_per_features, voxel_features, cur_mask,
+                      head: SegmentorHead, deep_fusion: DeepFusionBlock | None, rng=None):
+    """Devoxelize + (optional image fusion) + head."""
+    vids = batch['point_voxel_ids']
+    fusion = torch.cat([point_per_features, voxel_to_point(voxel_features, vids)], dim=-1)
+    if deep_fusion is not None:
+        img = deep_fusion(batch['points'][..., :3], cur_mask, fusion,
+                          batch['point_image_features'], rng, point_voxel_ids=vids,
+                          voxel_coords=batch['voxel_coords'], spatial_shape=spec.spatial_shape)
+        fusion = torch.cat([fusion, img], dim=-1)
+    return head(fusion, cur_mask, rng)

@@ -14,21 +14,23 @@ from torch import nn
 from ...ops.sparse_conv import SparseTensor
 from ..backbones.point_transformer import PointTransformer, build_window_plans
 from ..backbones.sparse_unet import build_unet_plans
-from .common import ModelSpec, PointBranch, SegmentorHead, fuse_and_classify
+from .common import (ModelSpec, PointBranch, SegmentorHead, build_deep_fusion,
+                     fuse_and_classify)
 
 
 class Segformer(nn.Module):
     def __init__(self, spec: ModelSpec, voxel_feature_channel: int = 32,
                  point_feature_channel: int = 64):
         super().__init__()
-        if spec.use_image_feature:
-            raise NotImplementedError('DeepFusion image features are not ported yet')
         self.spec = spec
         self.PointBranch_0 = PointBranch(spec, point_feature_channel)
         self.PointTransformer_0 = PointTransformer(
             spec, self.PointBranch_0.voxel_channels, voxel_feature_channel)
+        fusion_channel = point_feature_channel + voxel_feature_channel
+        self.DeepFusionBlock_0 = build_deep_fusion(spec, fusion_channel)
         self.SegmentorHead_0 = SegmentorHead(
-            point_feature_channel + voxel_feature_channel, spec.num_classes)
+            fusion_channel + (spec.dim_image_feature if spec.use_image_feature else 0),
+            spec.num_classes)
 
     def forward(self, batch, rng: torch.Generator | None = None):
         if self.training and rng is None:
@@ -41,8 +43,8 @@ class Segformer(nn.Module):
         plans = build_unet_plans(st, spec.capacities)
         window_parts, _ = build_window_plans(plans, spec)
         out = self.PointTransformer_0(voxel_feats, plans, window_parts, rng)
-        point_out = fuse_and_classify(batch, point_per, out['voxel_features'],
-                                      cur_mask, self.SegmentorHead_0, rng)
+        point_out = fuse_and_classify(spec, batch, point_per, out['voxel_features'], cur_mask,
+                                      self.SegmentorHead_0, self.DeepFusionBlock_0, rng)
         return {
             'point_out': point_out,
             'voxel_out': out['voxel_out'],

@@ -1,4 +1,5 @@
-"""Segment reductions over ragged-with-mask arrays, and row gathers.
+"""Segment reductions over ragged-with-mask arrays, row gathers, and ranks
+within groups.
 
 Counterpart of ``openseg3d_tpu/ops/scatter.py``. Segment id -1 means
 "unassigned" and is excluded from every reduction; so is any id
@@ -92,3 +93,23 @@ def voxel_to_point(voxel_features: torch.Tensor, point_voxel_ids: torch.Tensor):
     safe = torch.clamp(point_voxel_ids, 0, voxel_features.shape[1] - 1)
     g = take_rows(voxel_features, safe)
     return torch.where((point_voxel_ids >= 0)[..., None], g, 0)
+
+
+def inner_group_ranks(group_ids: torch.Tensor, valid: torch.Tensor | None = None):
+    """Rank of each element within its group (0-based), by flat position
+    (``ops/scatter.py:83-107``): one stable sort of the ids, then each
+    element's distance from the start of its run, so the ranks repeat run to
+    run. group_ids [N] -> int32 [N]. Invalid elements (valid False) rank
+    within one shared trash group, which callers mask out."""
+    n = group_ids.shape[0]
+    g = group_ids.long()
+    if valid is not None:
+        g = torch.where(valid, g, torch.iinfo(torch.int32).max)
+    sorted_g, order = torch.sort(g, stable=True)
+    pos = torch.arange(n, device=g.device)
+    is_start = torch.ones(n, dtype=torch.bool, device=g.device)
+    is_start[1:] = sorted_g[1:] != sorted_g[:-1]
+    run_start = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+    ranks = torch.empty(n, dtype=torch.int32, device=g.device)
+    ranks[order] = (pos - run_start).int()
+    return ranks

@@ -19,7 +19,9 @@ Drawing with numpy keeps the weights independent of the torch version.
 
 Frames (``reference_frame``):
   * ``one_sweep``: the benchmark frame, ``make_waymo_like_cloud`` from
-    RandomState(0), 163840 points, random labels (``chip_smoke.py``'s);
+    RandomState(0), 163840 points, random labels (``chip_smoke.py``'s), and
+    where the configuration uses image features, synthetic ones drawn next
+    (``data/synthetic.synthetic_image_features``);
   * ``multi_sweep``: the last of 3 frames of one segment written by
     ``data/synthetic.make_tree`` and read through ``WaymoDataset`` in
     validation mode with 3 sweeps, 60074 points a frame so that the 3
@@ -56,6 +58,8 @@ REFERENCES = {
     'waymo_multi_sweeps': ('waymo_multi_sweeps.yaml', {}, 'multi_sweep'),
     'waymo_one_sweep_spnet': ('waymo_one_sweep.yaml', {'MODEL': {'SEGMENTOR': 'spnet'}},
                               'one_sweep'),
+    'waymo_one_sweep_deepfusion': ('waymo_one_sweep.yaml', {'DATASET': {
+        'USE_IMAGE_FEATURE': True, 'DIM_IMAGE_FEATURE': 28}}, 'one_sweep'),
 }
 WEIGHT_SEED = 0
 FRAME_SEED = 0
@@ -90,9 +94,10 @@ def _stacked_prefixes(model: torch.nn.Module) -> list:
             if isinstance(m, torch.nn.ModuleList)]
 
 
-def _draw(rng, name: str, shape: tuple, layer_shape: tuple) -> np.ndarray:
+def _draw(rng, name: str, shape: tuple, layer_shape: tuple,
+          fan_in: int | None = None) -> np.ndarray:
     if name in ('kernel', 'transform_kernel'):
-        fan_in = int(np.prod(layer_shape[:-1]))
+        fan_in = fan_in or int(np.prod(layer_shape[:-1]))
         return rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
     if name == 'in_proj_kernel':
         bound = np.sqrt(6.0 / (layer_shape[0] + layer_shape[1]))
@@ -136,7 +141,9 @@ def reference_weights(cfg, seed: int = WEIGHT_SEED):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = _draw(rng, path[-1], shape, layer_shape).astype(np.float32)
+        # DeepFusion's kv_proj is a DenseGeneral to (2, hidden): fan-in is its first axis
+        fan_in = layer_shape[0] if path[-2] == 'kv_proj' else None
+        node[path[-1]] = _draw(rng, path[-1], shape, layer_shape, fan_in).astype(np.float32)
     return out['params'], out['batch_stats']
 
 
@@ -146,7 +153,7 @@ def reference_frame(cfg, name: str, seed: int = FRAME_SEED) -> dict:
     from .data.synthetic import bench_frame, make_tree
     n = FRAME_POINTS[name]
     if name == 'one_sweep':
-        return bench_frame(cfg, n, seed)
+        return bench_frame(cfg, n, seed, image_features=cfg.DATASET.USE_IMAGE_FEATURE)
     if name != 'multi_sweep':
         raise ValueError(name)
     if not cfg.DATASET.USE_MULTI_SWEEPS or cfg.DATASET.NUM_SWEEPS != 3:

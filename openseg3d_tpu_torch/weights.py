@@ -11,7 +11,8 @@ name:
     stacked on axis 0, and layer i takes slice i;
   * anything else: parameters and buffers by their own names (sparse-conv
     ``kernel [27, Cin, Cout]`` as it is, OCR's ``transform_kernel`` too,
-    ``in_proj_kernel [C, 3C]``, ``in_proj_bias``, ``tau``, BN
+    DeepFusion's ``kv_proj`` (a DenseGeneral: ``kernel [Ci, 2, hc]``,
+    ``bias [2, hc]``), ``in_proj_kernel [C, 3C]``, ``in_proj_bias``, ``tau``, BN
     ``scale``/``bias``/``mean``/``var``).
 Any leaf left unused, any tensor left unset, and any shape mismatch raises.
 
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.deep_fusion import DenseGeneral
 from .models.norm import MaskedBatchNorm
 from .models.ocr import OCRLayer
 from .models.sparse_modules import SparseConv
@@ -169,6 +171,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 k3, cin, _ = mod.transform_kernel.shape
                 mod.transform_kernel.copy_(normal(mod.transform_kernel.shape,
                                                   math.sqrt(2.0 / (k3 * cin))))
+            elif isinstance(mod, DenseGeneral):
+                mod.kernel.copy_(normal(mod.kernel.shape, math.sqrt(2.0 / mod.kernel.shape[0])))
+                mod.bias.zero_()
             elif isinstance(mod, SparseConv):
                 k3, cin, _ = mod.kernel.shape
                 mod.kernel.copy_(normal(mod.kernel.shape, math.sqrt(2.0 / (k3 * cin))))

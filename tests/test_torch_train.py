@@ -54,6 +54,7 @@ from openseg3d_tpu.models.optim import build_schedule as jax_build_schedule
 from openseg3d_tpu_torch import engine
 from openseg3d_tpu_torch.data.batch import to_device
 from openseg3d_tpu_torch.engine import TrainState, build_segmentor, make_train_step
+from openseg3d_tpu_torch.models.deep_fusion import DeepFusionBlock
 from openseg3d_tpu_torch.models.ocr import OCRLayer
 from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
 from openseg3d_tpu_torch.models.segmentors.common import SegmentorHead
@@ -86,6 +87,8 @@ def _no_dropout(model):
             m.attn_drop = 0.0
         elif isinstance(m, (MLP, SegmentorHead, OCRLayer)):
             m.drop = 0.0
+        elif isinstance(m, DeepFusionBlock):
+            m.attn_pdrop = 0.0
 
 
 def _port_state(cfg, params, stats):
@@ -119,20 +122,25 @@ def _leaf_errors(mine, ref):
             for p in b}
 
 
-def _step_both(monkeypatch, cfg, nb=None):
+def _step_both(monkeypatch, cfg, nb=None, variables=None):
     """One train step of the port and of JAX from the same random weights
-    on the same batch (default: two synthetic samples). Returns (port
+    on the same batch (default: two synthetic samples). The weights are
+    `variables` ((params, batch_stats)), else drawn over the JAX model's
+    tree. Returns (port
     metrics, port grads, new stats, new params, JAX loss, grads, new stats,
     new params, the initial params)."""
     jmodel, jspec = jax_engine.build_segmentor(cfg)
     if nb is None:
         nb = synthetic_batch(cfg, batch_size=2, seed=3)
     jb = {k: jnp.asarray(v) for k, v in nb.items() if k != 'batch_size'}
-    shapes = jax.eval_shape(functools.partial(jmodel.init, train=False),
-                            {'params': jax.random.PRNGKey(0)}, jb)
-    rng = np.random.RandomState(0)
-    params = _randomise(shapes['params'], rng)
-    stats = _randomise(shapes['batch_stats'], rng)
+    if variables is None:
+        shapes = jax.eval_shape(functools.partial(jmodel.init, train=False),
+                                {'params': jax.random.PRNGKey(0)}, jb)
+        rng = np.random.RandomState(0)
+        params = _randomise(shapes['params'], rng)
+        stats = _randomise(shapes['batch_stats'], rng)
+    else:
+        params, stats = variables
 
     # the port: one train step, recording the aux labels its 1-NN gives
     state, spec = _port_state(cfg, params, stats)
