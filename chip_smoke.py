@@ -168,7 +168,29 @@ Phases (each asserts or raises; nothing is caught):
      and DATASET.USE_IMAGE_FEATURE, whose checkpoint holds DeepFusion's
      tensors; there also 2 epochs with --deterministic and the
      augmentation off, and epoch 2 again from epoch_1.pt must give
-     epoch_2.pt as before (as 7b).
+     epoch_2.pt as before (as 7b);
+  G. data-parallel training (parallel/dist.py) and the last modules:
+     G1 two spawned ranks on cuda:0 over gloo (the only place where ranks
+     share a card) against one process taking their two frames at B = 2:
+     (a) float32, full width, DP_POINTS points a frame with the caps cut to
+     match, no dropout: loss within DP_TOL relative, the state after one
+     step within DP_TOL of (1 + each leaf's max), both ranks bit-equal; a
+     float64 witness of the same step on the host's cores (dp_float64): one
+     process and two gloo ranks within DP_FLOAT64_TOL of each other; each
+     gradient leaf within DP_TOL plus the one-process float32 leaf's own
+     distance from the float64 one (of (1 + the leaf's max)); over the tree
+     within DP_NOISE_FACTOR x the one-process step with its frames swapped;
+     (b) bf16 at full capacity: loss within DP_BF16_LOSS_RTOL of
+     the one-process step, 105 B2f, 105 B2b and 1 B3 launches and 20 conv
+     and 36 permute_rows backwards a rank, median step, peak and the
+     all-reduce's device and host ms under the profiler (an upper bound:
+     shared card, gloo through the host); G2 torchrun --nproc_per_node 1
+     of tools.train --launcher pytorch (NCCL): rc 0, process 0/1, one
+     epoch_1.pt, a finite mIoU; G3 Dice and focal in a full-size bf16 step,
+     then the last modules on the card against their CPU run (losses,
+     SparseBasicBlock with_sa, MaskedLayerNorm, the window helpers,
+     query_and_group, interpolation, FPS and sectorized FPS of FPS_SAMPLES
+     on the bench frame's voxel centres).
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1.
 Every time printed comes with the card's name and power limit.
@@ -1192,8 +1214,6 @@ def check_small_train_reference(device):
     from openseg3d_tpu_torch.data.batch import collate_padded, pad_sample, to_device
     from openseg3d_tpu_torch.engine import TrainState, build_segmentor, make_train_step
     from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
-    from openseg3d_tpu_torch.models.segmentors.common import SegmentorHead
-    from openseg3d_tpu_torch.models.swformer import WindowAttention
     from openseg3d_tpu_torch.ops.attention import window_attention_train_backward
     from openseg3d_tpu_torch.weights import init_weights
 
@@ -1218,11 +1238,7 @@ def check_small_train_reference(device):
     for dev in ('cpu', device):
         model, spec = build_segmentor(cfg, dev)
         init_weights(model, torch.Generator().manual_seed(3))
-        for mod in model.modules():
-            if isinstance(mod, WindowAttention):
-                mod.attn_drop = 0.0
-            elif isinstance(mod, SegmentorHead):
-                mod.drop = 0.0
+        set_dropout_off(model)
         state = TrainState(model, build_optimizer(cfg, model.parameters()),
                            build_schedule(cfg, 1, 10))
         before = window_attention_train_backward.launches
@@ -1871,6 +1887,593 @@ def knn_shell(spec, batch, smi):
     return rows, ms
 
 
+# ---------------------------------------------------------------------------
+# phase G: data-parallel training (parallel/dist.py) and the last modules
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_POINTS = 32768            # G1(a): two frames of this many points, the caps cut to match
+DP_CAPS = {'MAX_POINTS_PER_SAMPLE': 32768, 'MAX_VOXELS_PER_SAMPLE': 32768}
+DP_TOL = 1e-4                # G1(a): loss relative; each leaf x (1 + its largest magnitude)
+# G1(a): a float64 witness of the step (dp_float64) measures how far the
+# one-process float32 gradient itself lies from the exact one. Each leaf of
+# the two-rank float32 gradient may differ from the one-process leaf by
+# DP_TOL plus that distance, as it does when it lies within DP_TOL of the
+# exact leaf (triangle inequality): the cancelling attention out_proj.bias
+# sums put the one-process float32 step itself up to ~4e-4 off there.
+# Over the tree, the two ranks within this factor of the one-process step
+# with its frames swapped:
+DP_NOISE_FACTOR = 2.0
+# G1(a): the float64 two-rank step against the float64 one-process step, each
+# leaf x (1 + its largest magnitude): the same function
+DP_FLOAT64_TOL = 1e-9
+DP_BF16_LOSS_RTOL = 1e-2     # G1(b): the bf16 loss against the one-process B = 2 step
+FPS_SAMPLES = 4096
+
+
+def set_dropout_off(model):
+    """Every dropout and drop-path rate of the model at 0; returns what
+    restores them."""
+    saved = []
+    for m in model.modules():
+        for attr in ('attn_drop', 'drop', 'drop_path', 'attn_pdrop'):
+            if isinstance(getattr(m, attr, None), float):
+                saved.append((m, attr, getattr(m, attr)))
+                setattr(m, attr, 0.0)
+    return saved
+
+
+def dp_configs(dtype='float32'):
+    """(G1(a): `dtype`, full width, the caps cut for DP_POINTS and no drop
+    path; G1(b): the default config, bf16 at full capacity)."""
+    from openseg3d_tpu_torch.config import cfg_from_file
+    path = os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml')
+    return (cfg_from_file(path, overrides={'RUNTIME': {**DP_CAPS, 'COMPUTE_DTYPE': dtype},
+                                           'MODEL': {'DROP_PATH_RATE': 0.0}}),
+            cfg_from_file(path))
+
+
+def dp_frames(cfg, n_points):
+    """Every rank's frame, in rank order: rank r takes bench_frame from seed
+    r, so rank 0 the bench frame (numpy, B = 1 each)."""
+    from openseg3d_tpu_torch.data.synthetic import bench_frame
+    return [bench_frame(cfg, n_points, seed=r) for r in range(DP_WORLD)]
+
+
+def dp_state(cfg, device):
+    """The train state from the seeded weights every G1 run starts from."""
+    import torch
+    from openseg3d_tpu_torch.engine import TrainState, build_segmentor
+    from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
+    from openseg3d_tpu_torch.weights import init_weights
+    model, spec = build_segmentor(cfg, device)
+    init_weights(model, torch.Generator().manual_seed(0))
+    return TrainState(model, build_optimizer(cfg, model.parameters()),
+                      build_schedule(cfg, 30, 1000)), spec
+
+
+def dp_one_process(cfg, frames, device):
+    """One process on the ranks' frames as one B = 2 batch, dropout off:
+    (loss, {name: gradient}, {name: parameter or statistic after}) on the
+    host."""
+    import numpy as np
+    import torch
+    from openseg3d_tpu_torch.data.batch import to_device
+    from openseg3d_tpu_torch.engine import make_train_step
+    state, spec = dp_state(cfg, device)
+    set_dropout_off(state.model)
+    batch = to_device({k: np.concatenate([f[k] for f in frames]) for k in frames[0]
+                       if k != 'batch_size'}, device)
+    state, m = make_train_step(cfg, spec)(state, batch, seed=0)
+    assert m['grads_finite'], 'one-process B = 2 step'
+    out = (float(m['loss']), {k: p.grad.float().cpu() for k, p in state.model.named_parameters()},
+           {k: v.float().cpu() for k, v in state.model.state_dict().items()})
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def scaled_err(got, want):
+    """max |got - want| over 1 + the largest |want|."""
+    return float((got - want).abs().max()) / (1.0 + float(want.abs().max()))
+
+
+def tree_err(got, want):
+    """|got - want| / |want| over every leaf of {name: tensor} together (L2)."""
+    num = sum(float((got[k] - want[k]).double().square().sum()) for k in want)
+    return (num / sum(float(want[k].double().square().sum()) for k in want)) ** 0.5
+
+
+def dp_rank(rank, tmp):
+    """G1, one rank: joins a gloo group of DP_WORLD processes that all run
+    on cuda:0. Writes rank{rank}.json in tmp."""
+    import hashlib
+    import torch
+    import torch.distributed
+    from torch.profiler import record_function
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, REPO)
+    from openseg3d_tpu_torch.data.batch import to_device
+    from openseg3d_tpu_torch.data.synthetic import bench_frame
+    from openseg3d_tpu_torch.engine import make_train_step
+    from openseg3d_tpu_torch.parallel import dist as pdist
+    device = torch.device('cuda', 0)
+    torch.cuda.set_device(device)
+    pdist.init_distributed('cuda', backend='gloo', init_method=f'file://{tmp}/rendezvous',
+                           rank=rank, world_size=DP_WORLD)
+    try:
+        res = {'rank': rank, 'backend': pdist.backend()}
+        f32, bf16 = dp_configs()
+
+        # (a) float32 at full width on the cut capacity; the parent compares
+        state, spec = dp_state(f32, device)
+        set_dropout_off(state.model)
+        batch = to_device({k: v for k, v in bench_frame(f32, DP_POINTS, seed=rank).items()
+                           if k != 'batch_size'}, device)
+        state, m = make_train_step(f32, spec)(state, batch, seed=0)
+        grads = {k: p.grad.float().cpu() for k, p in state.model.named_parameters()}
+        after = {k: v.float().cpu() for k, v in state.model.state_dict().items()}
+        digest = hashlib.sha256()
+        for k in sorted(after):
+            digest.update(after[k].numpy().tobytes())
+        res['f32'] = {'finite': bool(m['grads_finite']), 'loss': float(m['loss']),
+                      'digest': digest.hexdigest()}
+        if rank == 0:
+            torch.save((grads, after), os.path.join(tmp, 'f32_ranks.pt'))
+        del state, batch, grads, after
+        torch.cuda.empty_cache()
+
+        # (b) bf16 at full capacity: one counted step with dropout off
+        # (compared with one process), then timed steps with the dropout on
+        state, spec = dp_state(bf16, device)
+        saved = set_dropout_off(state.model)
+        batch = to_device({k: v for k, v in bench_frame(bf16, N_POINTS, seed=rank).items()
+                           if k != 'batch_size'}, device)
+        step = make_train_step(bf16, spec)
+        counters = model_counters()
+        from openseg3d_tpu_torch.ops.sparse_conv import apply_sparse_conv
+        from openseg3d_tpu_torch.ops.window import permute_rows
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        apply_sparse_conv.backwards = permute_rows.backwards = 0
+        state, m = step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        res['bf16'] = {'finite': bool(m['grads_finite']), 'loss': float(m['loss']),
+                       'launches': {k: c.launches for k, c in counters.items()},
+                       'backwards': [apply_sparse_conv.backwards, permute_rows.backwards]}
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, seed=0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            assert m['grads_finite'], ('bf16 step', i)
+        res['bf16'].update(step_ms=statistics.median(times[1:]), times=times,
+                           peak=torch.cuda.max_memory_allocated())
+
+        # every collective of one step under the profiler, in a range each
+        all_reduce = torch.distributed.all_reduce
+
+        def annotated(*args, **kwargs):
+            with record_function('all_reduce'):
+                return all_reduce(*args, **kwargs)
+
+        with mock.patch.object(torch.distributed, 'all_reduce', annotated):
+            events, wall = trace(lambda: step(state, batch, seed=0))
+        n, dev_ms, host_ms = range_device(events, 'all_reduce')
+        res['bf16'].update(all_reduce_calls=n, all_reduce_device_ms=dev_ms,
+                           all_reduce_host_ms=host_ms, profiled_step_ms=wall)
+        with open(os.path.join(tmp, f'rank{rank}.json'), 'w') as f:
+            json.dump(res, f)
+    finally:
+        pdist.destroy()
+
+
+def range_device(events, name):
+    """(number of record_function ranges called name, device ms of the
+    kernels, copies and memsets launched inside them by any thread, host ms
+    the ranges lasted)."""
+    ranges = [(e['ts'], e['ts'] + e['dur']) for e in events
+              if e.get('cat') == 'user_annotation' and e.get('name') == name]
+    launched = {e.get('args', {}).get('correlation') for e in events
+                if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                and any(lo <= e['ts'] <= hi for lo, hi in ranges)}
+    durs = [e['dur'] for e in events if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')
+            and e.get('args', {}).get('correlation') in launched - {None}]
+    return len(ranges), sum(durs) / 1e3, sum(hi - lo for lo, hi in ranges) / 1e3
+
+
+def keep_float64():
+    """The float64 witness's precision rule, patched into a process of its
+    own: a float64 tensor stays float64 through the port's float32 upcasts
+    (Tensor.float and the float32 classifier heads, layers.dense) and a mask
+    becomes float64; integer coordinates still become float32, as in the
+    float32 steps, so that the 1-NN's ties fall the same way."""
+    import torch
+    from openseg3d_tpu_torch import engine  # noqa: F401  (every module that imports dense)
+    from openseg3d_tpu_torch.models import layers
+    to_float, dense = torch.Tensor.float, layers.dense
+
+    def float_(self, *args, **kwargs):
+        if self.dtype in (torch.float64, torch.bool):
+            return self.double()
+        return to_float(self, *args, **kwargs)
+
+    def dense64(layer, x, dtype=None):
+        return dense(layer, x, None if x.dtype == torch.float64 else dtype)
+
+    torch.Tensor.float = float_
+    for module in list(sys.modules.values()):
+        if getattr(module, 'dense', None) is dense:
+            module.dense = dense64
+
+
+def dp_float64(rank, world, tmp, threads):
+    """G1(a)'s float64 witness on the host's cores: the float32 config's
+    step with the model, the frames and the compute dtype in float64. With
+    world 1 one process takes both frames as one batch; else rank `rank` of
+    a gloo group of `world` takes frame `rank`. Rank 0 saves its gradients
+    to tmp/float64_world{world}.pt."""
+    import resource
+    import numpy as np
+    import torch
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(threads)
+    keep_float64()
+    from openseg3d_tpu_torch.engine import make_train_step
+    from openseg3d_tpu_torch.parallel import dist as pdist
+    if world > 1:
+        pdist.init_distributed('cpu', backend='gloo', init_method=f'file://{tmp}/rendezvous64',
+                               rank=rank, world_size=world)
+    try:
+        cfg = dp_configs('float64')[0]
+        frames = dp_frames(cfg, DP_POINTS)
+        frames = frames if world == 1 else frames[rank:rank + 1]
+        state, spec = dp_state(cfg, 'cpu')
+        state.model.double()
+        set_dropout_off(state.model)
+        batch = {k: torch.from_numpy(np.concatenate([f[k] for f in frames]))
+                 for k in frames[0] if k != 'batch_size'}
+        batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+        state, m = make_train_step(cfg, spec)(state, batch, seed=0)
+        assert m['grads_finite'], ('float64 witness', rank, world)
+        if rank == 0:
+            torch.save((float(m['loss']), {k: p.grad for k, p in state.model.named_parameters()}),
+                       os.path.join(tmp, f'float64_world{world}.pt'))
+            with open(os.path.join(tmp, f'float64_peak{world}.txt'), 'w') as f:
+                f.write(f'{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}')
+    finally:
+        pdist.destroy()
+
+
+def start(target, world, args):
+    """target(rank, *args) in `world` spawned processes, started."""
+    import multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=target, args=(r,) + tuple(args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join(procs, timeout):
+    """Every process must exit 0 within `timeout` seconds; the survivors
+    are killed."""
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+
+
+def run_data_parallel(smi, device):
+    """G1: two ranks on the one card (gloo, both on cuda:0: the only place
+    where ranks share a card) against one process taking their two frames
+    as one batch, then (a)'s float64 witness on the host's cores. Returns
+    the ranks' results and (a)'s summary."""
+    import torch
+    f32, bf16 = dp_configs()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        frames = dp_frames(f32, DP_POINTS)
+        ref_loss, ref, ref_after = dp_one_process(f32, frames, device)
+        swapped = dp_one_process(f32, frames[::-1], device)[1]
+        bf16_loss = dp_one_process(bf16, dp_frames(bf16, N_POINTS), device)[0]
+        print(f'G1 one-process B = 2 references: {time.perf_counter() - t0:.1f} s; bf16 loss '
+              f'{bf16_loss:.6g}', flush=True)
+        t0 = time.perf_counter()
+        join(start(dp_rank, DP_WORLD, (tmp,)), 600)
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f'rank{r}.json')) as f:
+                ranks.append(json.load(f))
+        grads, after = torch.load(os.path.join(tmp, 'f32_ranks.pt'), weights_only=True)
+        print(f'G1 two ranks: {time.perf_counter() - t0:.1f} s', flush=True)
+        t0 = time.perf_counter()
+        # one after the other: side by side they pass 96 GiB of host memory
+        cores = os.cpu_count() or 2
+        join(start(dp_float64, 1, (1, tmp, cores)), 900)
+        one_s = time.perf_counter() - t0
+        join(start(dp_float64, DP_WORLD, (DP_WORLD, tmp, max(1, cores // DP_WORLD))), 900)
+        loss64, exact = torch.load(os.path.join(tmp, 'float64_world1.pt'), weights_only=True)
+        loss64_ranks, exact_ranks = torch.load(
+            os.path.join(tmp, f'float64_world{DP_WORLD}.pt'), weights_only=True)
+        peak = []
+        for world in (1, DP_WORLD):
+            with open(os.path.join(tmp, f'float64_peak{world}.txt')) as f:
+                peak.append(f.read())
+        print(f'G1 float64 witness on {cores} host cores: one process {one_s:.1f} s, peak '
+              f'resident memory {peak[0]} GiB; {DP_WORLD} ranks {time.perf_counter() - t0 - one_s:.1f}'
+              f' s, rank 0 {peak[1]} GiB', flush=True)
+
+    # the float32 runs against each other, and each against the float64 witness
+    two = {k: scaled_err(grads[k], ref[k]) for k in ref}
+    to64 = {name: {k: scaled_err(g[k].double(), exact[k]) for k in exact}
+            for name, g in (('one process', ref), ('frames swapped', swapped),
+                            ('two ranks', grads))}
+    # leaves past DP_TOL: (ranks vs one process, its gate, each float32 run vs float64, leaf)
+    over = [(two[k], DP_TOL + to64['one process'][k], to64['one process'][k],
+             to64['frames swapped'][k], to64['two ranks'][k], k)
+            for k in sorted(ref, key=lambda k: -two[k]) if two[k] > DP_TOL]
+    tree, tree_noise = tree_err(grads, ref), tree_err(swapped, ref)
+    tree64 = {name: tree_err({k: g[k].double() for k in exact}, exact)
+              for name, g in (('one process', ref), ('frames swapped', swapped),
+                              ('two ranks', grads))}
+    ranks64 = max((scaled_err(exact_ranks[k], exact[k]), k) for k in exact)
+    worst = max((v, k) for k, v in two.items())
+    after_err = max((scaled_err(after[k], ref_after[k]), k) for k in ref_after)
+    caps = ', '.join(f'{k} {v}' for k, v in DP_CAPS.items())
+    print(f'G1(a) {DP_WORLD} ranks ({ranks[0]["backend"]}, cuda:0 shared), float32, full '
+          f'width, {DP_POINTS} points a frame ({caps}): loss {ranks[0]["f32"]["loss"]:.6g} rel '
+          f'{abs(ranks[0]["f32"]["loss"] - ref_loss) / abs(ref_loss):.3g} against one process '
+          f'at B = 2; worst gradient leaf {worst[1]} {worst[0]:.3g}; worst parameter or '
+          f'statistic after the step {after_err[1]} {after_err[0]:.3g} (gate {DP_TOL}); on '
+          f'{smi}', flush=True)
+    print(f'G1(a) gradient leaves past {DP_TOL} of (1 + the leaf\'s max): two ranks vs one '
+          f'process, its gate ({DP_TOL} + the one process vs float64); float64 witness vs the '
+          f'one process, the frames swapped, the two ranks; leaf', flush=True)
+    for row in over:
+        print('  ' + ' '.join(f'{v:.3g}' for v in row[:5]) + f' {row[5]}', flush=True)
+    print(f'G1(a) over the tree (relative L2): two ranks vs one process {tree:.3g}, frames '
+          f'swapped vs one process {tree_noise:.3g} (gate {DP_NOISE_FACTOR} x); against the '
+          f'float64 witness: ' + ', '.join(f'{n} {v:.3g}' for n, v in tree64.items())
+          + f'; float64 {DP_WORLD} ranks vs one process: loss {loss64_ranks:.12g} vs '
+          f'{loss64:.12g}, worst leaf {ranks64[1]} {ranks64[0]:.3g} (gate {DP_FLOAT64_TOL})',
+          flush=True)
+    for res in ranks:
+        b = res['bf16']
+        print(f'G1(b) rank {res["rank"]}/{DP_WORLD}, bf16 at full capacity: loss '
+              f'{b["loss"]:.6g} (one process B = 2: {bf16_loss:.6g}, rel '
+              f'{abs(b["loss"] - bf16_loss) / abs(bf16_loss):.3g}); launches {b["launches"]}, '
+              f'gather-only backwards (conv, permute_rows) {b["backwards"]}; median step '
+              f'{b["step_ms"]:.2f} ms (steps {[round(x, 2) for x in b["times"]]}), peak memory '
+              f'{b["peak"] / 2**30:.2f} GiB; all-reduce under the profiler: '
+              f'{b["all_reduce_calls"]} calls, device {b["all_reduce_device_ms"]:.3f} ms, host '
+              f'{b["all_reduce_host_ms"]:.3f} ms of a {b["profiled_step_ms"]:.2f} ms step; an '
+              f'upper bound for NCCL across cards: two ranks share the card and gloo '
+              f'goes through the host; on {smi}', flush=True)
+    for res in ranks:
+        a, b = res['f32'], res['bf16']
+        assert a['finite'] and b['finite'], res
+        assert abs(a['loss'] - ref_loss) <= DP_TOL * abs(ref_loss), (a['loss'], ref_loss)
+        assert abs(b['loss'] - bf16_loss) <= DP_BF16_LOSS_RTOL * abs(bf16_loss), (b, bf16_loss)
+        assert b['launches'] == {'B1': 0, 'B2f': 105, 'B2b': 105, 'B3': 1}, b['launches']
+        assert b['backwards'] == [20, 36], b['backwards']
+    assert len({res['f32']['digest'] for res in ranks}) == 1, 'ranks hold other parameters'
+    assert after_err[0] <= DP_TOL, after_err
+    assert tree <= DP_NOISE_FACTOR * tree_noise, (tree, tree_noise)
+    bad = [row for row in over if row[0] > row[1]]
+    assert not bad, bad
+    assert ranks64[0] <= DP_FLOAT64_TOL, ranks64
+    return ranks, {'loss_rel': max(abs(r['f32']['loss'] - ref_loss) for r in ranks) / abs(ref_loss),
+                   'grad': worst[0], 'float64': ranks64[0]}
+
+
+def run_torchrun(smi):
+    """G2: the launcher users run, torchrun with one process on this card
+    (NCCL), a subprocess whose exit code is checked."""
+    import math
+    import re
+    import torch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, 'run')
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', '1', '-m', 'openseg3d_tpu_torch.tools.train',
+               '--launcher', 'pytorch', '--cfg_file',
+               os.path.join(REPO, 'configs', 'synthetic_smoke.yaml'), '--synthetic',
+               '--synthetic_frames', '4', '--batch_size', '1', '--epochs', '1',
+               '--eval_epoch_interval', '1', '--log_iter_interval', '1', '--num_workers', '0',
+               '--save_dir', run_dir]
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get('PYTHONPATH', ''))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+        print(proc.stdout[-2000:] + proc.stderr[-4000:], flush=True)
+        assert proc.returncode == 0, proc.returncode
+        with open(os.path.join(run_dir, 'train.log')) as f:
+            log = f.read()
+        files = sorted(n for n in os.listdir(run_dir) if n.startswith('epoch_'))
+    mious = [float(x) for x in re.findall(r'mIoU=([-0-9.naNinf]+)', log)]
+    print(f'G2 torchrun --nproc_per_node 1 ... --launcher pytorch: rc {proc.returncode} in '
+          f'{seconds:.1f} s, checkpoints {files}, validation mIoU {mious}, on {smi}', flush=True)
+    assert 'process 0/1, backend: nccl' in log, log[:2000]
+    assert files == ['epoch_1.pt'], files
+    assert len(mious) == 1 and math.isfinite(mious[0]), mious
+    return seconds
+
+
+def dice_focal_step(cfg, batch):
+    """G3: Dice and focal added to MODEL.LOSSES, in one full-size bf16
+    train step: a finite loss and gradients, the kernels launched."""
+    import math
+    import torch
+    from openseg3d_tpu_torch.engine import make_train_step
+    cfg = copy.deepcopy(cfg)
+    cfg.MODEL.LOSSES.update({'dice': 1.0, 'focal': 1.0})
+    device = batch['points'].device
+    state, spec = dp_state(cfg, device)
+    counters = model_counters()
+    for c in counters.values():
+        c.launches = 0
+    state, m = make_train_step(cfg, spec)(state, batch, seed=0)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f'G3 bf16 train step with MODEL.LOSSES {dict(cfg.MODEL.LOSSES)}: loss '
+          f'{float(m["loss"]):.6g}, gradients finite {m["grads_finite"]}, launches {launches}',
+          flush=True)
+    assert m['grads_finite'] and math.isfinite(float(m['loss'])), m
+    assert launches == {'B1': 0, 'B2f': 105, 'B2b': 105, 'B3': 1}, launches
+    del state
+    torch.cuda.empty_cache()
+
+
+def rest_against_cpu(smi, cfg, batch):
+    """G3: the last modules on the batch's device against their CPU run at
+    a small float32 size (the CPU runs are held against the JAX package by
+    tests/test_torch_rest.py), and FPS on the frame's voxel centres.
+    Returns ({module: max abs difference}, {FPS: (seconds, equal)})."""
+    import numpy as np
+    import torch
+    from openseg3d_tpu_torch.models import losses
+    from openseg3d_tpu_torch.models.norm import MaskedLayerNorm
+    from openseg3d_tpu_torch.models.segmentors.common import ModelSpec
+    from openseg3d_tpu_torch.models.sparse_modules import SparseBasicBlock
+    from openseg3d_tpu_torch.ops import sampling, sparse_conv as sc, window as win
+    from openseg3d_tpu_torch.utils import pointops
+    from openseg3d_tpu_torch.weights import init_weights
+
+    device = batch['points'].device
+    sync = torch.cuda.synchronize if device.type == 'cuda' else (lambda: None)
+    rng = np.random.RandomState(5)
+    worst = {}
+
+    def both(fn, *arrays, grad=()):
+        """fn on the card and on the CPU from the same arrays: (outputs on
+        the host, gradients of (output x a fixed cotangent) w.r.t. the
+        inputs listed in grad), card first."""
+        out = []
+        for dev in (device, 'cpu'):
+            ts = [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+                  for a in arrays]
+            for i in grad:
+                ts[i].requires_grad_()
+            y = fn(*ts)
+            g = []
+            if grad:
+                cot = torch.from_numpy(np.asarray(np.random.RandomState(0).randn(*y.shape),
+                                                  dtype=np.float32)).to(dev)
+                g = torch.autograd.grad((y.float() * cot).sum(), [ts[i] for i in grad])
+            out.append((y.detach().cpu(), [x.cpu() for x in g]))
+        return out
+
+    def check(name, pair, tol):
+        (yg, gg), (yc, gc) = pair
+        err = max([float((yg.float() - yc.float()).abs().max())]
+                  + [float((a - b).abs().max()) for a, b in zip(gg, gc)])
+        worst[name] = err
+        assert err <= tol, (name, err, tol)
+
+    logits = (rng.randn(4096, 22) * 3).astype(np.float32)
+    labels = rng.randint(0, 22, 4096)
+    labels[rng.permutation(4096)[:300]] = 255
+    for name in ('dice', 'focal'):
+        fn = getattr(losses, f'{name}_loss')
+        check(name, both(lambda lg, lb, fn=fn: fn(lg, lb, 255), logits, labels, grad=(0,)), 1e-5)
+
+    # SparseBasicBlock(with_sa=True) on a small sparse tensor
+    shape, c = (12, 12, 12), 16
+    coords = np.full((2, 600, 3), -1, np.int32)
+    for i in range(2):
+        lin = np.sort(rng.choice(12 ** 3, 500, replace=False))
+        coords[i, :500] = np.stack([lin // 144, (lin // 12) % 12, lin % 12], 1)
+    feats = rng.randn(2, 600, c).astype(np.float32) * (coords[..., :1] >= 0)
+    block = SparseBasicBlock(c, with_sa=True)
+    init_weights(block, torch.Generator().manual_seed(1))
+    state_dict = copy.deepcopy(block.state_dict())
+
+    def sa_block(x, co):
+        blk = SparseBasicBlock(c, with_sa=True).to(x.device).train()
+        blk.load_state_dict(state_dict)
+        rule = sc.build_subm_rulebook(sc.SparseTensor(x, co, shape))
+        return blk(x, rule, co[..., 0] >= 0)
+
+    check('SparseBasicBlock with_sa', both(sa_block, feats, coords, grad=(0,)), 1e-4)
+
+    x = (rng.randn(2, 300, 48) * 2).astype(np.float32)
+    mask = rng.rand(2, 300) > 0.3
+    ln = MaskedLayerNorm(48)
+    with torch.no_grad():
+        ln.LayerNorm_0.weight.uniform_(0.5, 1.5)
+        ln.LayerNorm_0.bias.normal_()
+
+    def layer_norm(v, mk):
+        return copy.deepcopy(ln).to(v.device)(v, mk)
+
+    check('MaskedLayerNorm', both(layer_norm, x, mask, grad=(0,)), 1e-5)
+
+    spec_l = win.LevelSpec(max_tokens=64, lower=0, upper=64, num_windows=40)
+    idx = np.full((2, 3000), -1, np.int64)
+    for i in range(2):
+        idx[i, rng.permutation(3000)[:2000]] = rng.permutation(2560)[:2000]
+    wf = rng.randn(2, 40, 64, 8).astype(np.float32)
+    flat = rng.randn(2, 3000, 8).astype(np.float32)
+    for name, fn, args in (('flat_to_window', win.flat_to_window, (flat, idx)),
+                           ('window_mask', win.window_mask, (idx,)),
+                           ('window_to_flat', win.window_to_flat, (wf, idx))):
+        check(name, both(lambda *a, fn=fn: fn(*a, spec_l), *args), 0.0)
+
+    xyz = rng.uniform(-20, 20, (4000, 3)).astype(np.float32)
+    qxyz = rng.uniform(-20, 20, (1500, 3)).astype(np.float32)
+    pf = rng.randn(4000, 16).astype(np.float32)
+    pv, qv = rng.rand(4000) > 0.2, rng.rand(1500) > 0.1
+    check('query_and_group', both(lambda a, b, f, p, q: pointops.query_and_group(
+        16, a, b, f, p_valid=p, q_valid=q), xyz, qxyz, pf, pv, qv, grad=(2,)), 1e-5)
+    from openseg3d_tpu_torch.ops.knn import knn_query
+    kidx, kdist = knn_query(3, torch.from_numpy(xyz)[None], torch.from_numpy(qxyz)[None],
+                            torch.from_numpy(pv)[None], torch.from_numpy(qv)[None])
+    kdist = torch.where(kidx >= 0, kdist.abs(), 1.0)
+    check('interpolation', both(pointops.interpolation, kidx[0].numpy(), kdist[0].numpy(), pf,
+                                grad=(2,)), 1e-5)
+
+    # FPS on the bench frame's voxel centres
+    from openseg3d_tpu_torch.utils.pointops import get_voxel_centers
+    mspec = ModelSpec.from_config(cfg)
+    centres = get_voxel_centers(batch['voxel_coords'][0], 1.0, mspec.voxel_size,
+                                mspec.point_cloud_range)
+    valid = batch['voxel_mask'][0]
+    fps = {}
+    for name, fn in (('furthest_point_sample', lambda p, v: sampling.furthest_point_sample(
+                          p, v, FPS_SAMPLES)),
+                     ('sectorized_fps', lambda p, v: sampling.sectorized_fps(
+                         p, v, FPS_SAMPLES, 6))):
+        sync()
+        t0 = time.perf_counter()
+        on_card = fn(centres, valid)
+        sync()
+        card_s = time.perf_counter() - t0
+        on_cpu = fn(centres.cpu(), valid.cpu())
+        equal = bool(torch.equal(on_card.cpu(), on_cpu))
+        fps[name] = (card_s, equal)
+        assert equal, (name, int((on_card.cpu() != on_cpu).sum()))
+    print(f'G3 the last modules on the card against their CPU run, max abs difference: '
+          f'{ {k: float(f"{v:.3g}") for k, v in worst.items()} }; FPS of {FPS_SAMPLES} on the '
+          f'bench frame\'s {int(valid.sum())} voxel centres (card s, indices equal to the '
+          f'CPU run): {fps}, on {smi}', flush=True)
+    return worst, fps
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2038,6 +2641,19 @@ def main() -> int:
     run_rehearsal(smi, image_feature_dim=IMAGE_FEATURES['DIM_IMAGE_FEATURE'])
     print(f'phase B: {time.perf_counter() - t0:.1f} s', flush=True)
 
+    # G. data-parallel training: two ranks sharing the card over gloo, then
+    # torchrun (NCCL) at world size 1; the last modules on the card
+    t0 = time.perf_counter()
+    dp, dp_f32 = run_data_parallel(smi, device)
+    print(f'phase G1: {time.perf_counter() - t0:.1f} s', flush=True)
+    t0 = time.perf_counter()
+    torchrun_s = run_torchrun(smi)
+    print(f'phase G2: {time.perf_counter() - t0:.1f} s', flush=True)
+    t0 = time.perf_counter()
+    dice_focal_step(cfg, batch)
+    rest = rest_against_cpu(smi, cfg, batch)
+    print(f'phase G3: {time.perf_counter() - t0:.1f} s', flush=True)
+
     kp, pp = tr['prof'], tr['plain_prof']
     rows = [
         ('window_attention_packed', 'window_attention.cu', 'attention.py:317', launches,
@@ -2070,6 +2686,14 @@ def main() -> int:
           f'{spnet_learning["last_loss"]:.4f}, validation mIoU {spnet_learning["mious"]}; '
           f'rehearsal: {rehearsal["frames"]} frames submitted, equal to the eval argmax',
           flush=True)
+    print(f'data-parallel, 2 ranks sharing the card over gloo: float32 loss rel '
+          f'{dp_f32["loss_rel"]:.3g}, worst gradient leaf {dp_f32["grad"]:.3g}, float64 '
+          f'ranks vs one process {dp_f32["float64"]:.3g}; bf16 median step '
+          f'{[round(r["bf16"]["step_ms"], 2) for r in dp]} ms, all-reduce host '
+          f'{[round(r["bf16"]["all_reduce_host_ms"], 2) for r in dp]} ms, device '
+          f'{[round(r["bf16"]["all_reduce_device_ms"], 3) for r in dp]} ms a rank; torchrun '
+          f'(NCCL) {torchrun_s:.1f} s; the last modules on the card, max abs difference from '
+          f'the CPU {max(rest[0].values()):.3g}, FPS indices equal; on {smi}', flush=True)
     print(json.dumps({'kernels': [{
         'name': name,
         'route': 'cuda',

@@ -1,14 +1,19 @@
 """IoU metric: the device-side confusion matrix and the host accumulator.
 
 Counterpart of ``openseg3d_tpu/core/metrics.py``, whose module imports JAX.
-``IOUMetric`` keeps the JAX package's numpy logic; the multi-host all-gather
-waits for the multi-GPU slice.
+``IOUMetric`` keeps the JAX package's numpy logic; with more than one rank
+``get_metric`` sums the histogram over the ranks, and a failed collective
+raises: it never falls back to this rank's histogram.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
+
+from ..parallel.dist import all_reduce_array, world
 
 
 def confusion_matrix(preds: torch.Tensor, labels: torch.Tensor,
@@ -53,6 +58,17 @@ class IOUMetric:
         self.hist += np.asarray(hist, dtype=np.int64)
 
     def get_metric(self) -> dict:
-        iou = per_class_iou(self.hist)
+        """mIoU and per-class IoU of the histogram, summed over the ranks
+        (every rank must call this). A histogram that is already global (the
+        eval step's) comes out scaled by the world size, which no IoU sees."""
+        hist = self.hist
+        if world() > 1:
+            try:
+                hist = all_reduce_array(hist)
+            except Exception as e:
+                logging.getLogger('openseg3d_tpu_torch').error(
+                    'IoU histogram all-reduce failed: %s', e)
+                raise
+        iou = per_class_iou(hist)
         return {'mIOU': float(np.nanmean(iou)),
                 'IOU': {n: float(iou[i]) for i, n in enumerate(self.class_names)}}

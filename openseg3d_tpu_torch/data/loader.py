@@ -1,11 +1,13 @@
 """Prefetching data loader.
 
-Counterpart of ``openseg3d_tpu/data/loader.py`` with
-``parallel/mesh.process_shard_indices`` (``mesh.py:112-135``) copied in: a
-spawned process pool voxelizes and pads samples ahead of the device, and the
-epoch+seed shuffle is deterministic. One process until the multi-GPU slice
-(ROADMAP A10): world size 1, rank 0. ``tests/test_torch_data.py`` holds the
-index order and ``sample_valid`` equal to the original's.
+Counterpart of ``openseg3d_tpu/data/loader.py``: a spawned process pool
+voxelizes and pads samples ahead of the device, and the epoch+seed shuffle is
+deterministic. Each process loads its own shard of every global batch
+(``parallel/dist.process_shard_indices``, re-exported here), with the world
+size and rank of the process group; ``batch_size`` is per process, and the
+length counts global batches, so every rank runs the same number of steps.
+``tests/test_torch_data.py`` holds the index order and ``sample_valid``
+equal to the original's.
 """
 
 from __future__ import annotations
@@ -15,31 +17,12 @@ from typing import Iterator
 
 import numpy as np
 
+from ..parallel.dist import process_shard_indices, world
 from .batch import collate_padded
 
+__all__ = ['DataLoader', 'process_shard_indices']
+
 _worker_dataset = None
-
-
-def process_shard_indices(n: int, shuffle_seed: int | None, epoch: int,
-                          batch_size_global: int, world: int = 1, rank: int = 0,
-                          return_valid: bool = False):
-    """This process's sample indices: epoch+seed deterministic shuffle, padded
-    to a multiple of the global batch by cycling from the front, strided by
-    rank (the DistributedSampler analog). With return_valid, also a bool
-    array marking which slots are real samples (False = a padding duplicate),
-    so that eval can keep recycled frames out of the IoU histogram."""
-    idx = np.arange(n)
-    if shuffle_seed is not None:
-        rng = np.random.RandomState(shuffle_seed + epoch)
-        rng.shuffle(idx)
-    per_host_batch = batch_size_global // world
-    total = int(np.ceil(n / batch_size_global)) * batch_size_global
-    valid = np.concatenate([np.ones(n, bool), np.zeros(total - n, bool)])
-    idx = np.resize(idx, total)
-    sel = np.arange(total).reshape(-1, world, per_host_batch)[:, rank, :].reshape(-1)
-    if return_valid:
-        return idx[sel], valid[sel]
-    return idx[sel]
 
 
 def _init_worker(dataset_factory, seed, worker_offset):
@@ -88,13 +71,14 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.dataset)
-        total = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        global_bs = self.batch_size * world()
+        total = n // global_bs if self.drop_last else -(-n // global_bs)
         return max(total, 1)
 
     def __iter__(self) -> Iterator[dict]:
         idx, valid = process_shard_indices(
             len(self.dataset), (self.seed if self.shuffle else None),
-            self.epoch, self.batch_size, return_valid=True)
+            self.epoch, self.batch_size * world(), return_valid=True)
         n_batches = len(self)
         idx = idx[:n_batches * self.batch_size]
         valid = valid[:n_batches * self.batch_size]

@@ -16,6 +16,9 @@ From JAX to PyTorch:
   * The dropout randomness of step s comes from a ``torch.Generator`` on the
     model's device, freshly seeded from (seed, s), as
     ``jax.random.fold_in(rng, step)`` derives it.
+  * Data-parallel training (``parallel/dist.py``) keeps the JAX package's
+    SPMD meaning: the loss, the BatchNorm statistics and the eval histogram
+    are those of the global batch.
   * The step updates the model in place (JAX returns a new state). When a
     gradient is not finite the update is dropped whole: the optimizer does
     not step (parameters, momentum buffers and the update count stay), and
@@ -35,6 +38,7 @@ from .models.losses import build_criterion
 from .models.optim import set_learning_rate
 from .models.segmentors.common import ModelSpec
 from .ops.knn import nearest_label_transfer
+from .parallel.dist import all_reduce_sum, gather_rows, rank, reduce_gradients
 from .utils.pointops import get_voxel_centers
 
 
@@ -63,30 +67,30 @@ class TrainState:
     updates: int = 0       # updates applied (optax's count): the schedule's input
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The dropout generator of one train step, a pure function of (seed,
-    step) like ``jax.random.fold_in(rng, step)``."""
+    step) like ``jax.random.fold_in(rng, step)``; a rank past 0 is folded in
+    too, so that the ranks draw different dropout and drop-path masks, as
+    the shards of one SPMD batch do."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    value = ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+    if rank:
+        value ^= (rank * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    gen.manual_seed(value)
     return gen
 
 
 def compute_loss(result, batch, criterion, spec: ModelSpec, aux_loss_weight: float):
     """Point losses + voxel losses + aux_loss_weight x aux-voxel losses, the
     aux labels carried from the full-resolution voxels to the stage-4 voxels
-    by the nearest voxel centre (``engine.py:67-96``), outside the gradient."""
+    by the nearest voxel centre (``engine.py:67-96``), outside the gradient.
+
+    With more than one rank, the aux labels are found on each rank's own
+    samples, then every rank's logits and labels are gathered in rank order
+    (``parallel.dist.gather_rows``) and each criterion runs once on the
+    global rows: the loss is the JAX package's loss of the global batch, the
+    same on every rank."""
     nc = spec.num_classes
-    loss = 0.0
-    point_out = result['point_out'].reshape(-1, nc)
-    point_labels = batch['point_labels'].reshape(-1)
-    for fn, w in criterion:
-        loss = loss + w * fn(point_out, point_labels)
-
-    voxel_out = result['voxel_out'].reshape(-1, nc)
-    voxel_labels = batch['voxel_labels'].reshape(-1)
-    for fn, w in criterion:
-        loss = loss + w * fn(voxel_out, voxel_labels)
-
     with torch.no_grad():
         centers = get_voxel_centers(result['voxel_coords'], 1.0, spec.voxel_size,
                                     spec.point_cloud_range)
@@ -95,10 +99,14 @@ def compute_loss(result, batch, criterion, spec: ModelSpec, aux_loss_weight: flo
         aux_labels = nearest_label_transfer(centers, batch['voxel_labels'],
                                             result['voxel_mask'], aux_centers,
                                             result['aux_voxel_mask'])
-    aux_out = result['aux_voxel_out'].reshape(-1, nc)
-    aux_labels = aux_labels.reshape(-1)
-    for fn, w in criterion:
-        loss = loss + aux_loss_weight * w * fn(aux_out, aux_labels)
+    loss = 0.0
+    for out, labels, scale in ((result['point_out'], batch['point_labels'], 1.0),
+                               (result['voxel_out'], batch['voxel_labels'], 1.0),
+                               (result['aux_voxel_out'], aux_labels, aux_loss_weight)):
+        out = gather_rows(out.reshape(-1, nc))
+        labels = gather_rows(labels.reshape(-1))
+        for fn, w in criterion:
+            loss = loss + scale * w * fn(out, labels)
     return loss
 
 
@@ -112,7 +120,10 @@ def make_train_step(cfg, spec: ModelSpec):
 
     One forward in training mode, the loss, the backward, and (if every
     gradient is finite) one optimizer update at ``schedule(state.updates)``.
-    The gradients stay in the parameters' ``.grad`` afterwards."""
+    With more than one rank the gradients are summed over the ranks first
+    (``parallel.dist.reduce_gradients``), so every rank takes the same
+    decision and the same update. The gradients stay in the parameters'
+    ``.grad`` afterwards."""
     criterion = build_criterion(cfg)
     aux_w = float(cfg.MODEL.AUX_LOSS_WEIGHT)
 
@@ -123,10 +134,11 @@ def make_train_step(cfg, spec: ModelSpec):
         # the BatchNorm running statistics as they were, for the guard
         stats = {name: b.clone() for name, b in model.named_buffers()}
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(batch, rng=step_generator(seed, state.step, device))
+        out = model(batch, rng=step_generator(seed, state.step, device, rank()))
         loss = compute_loss(out, batch, criterion, spec, aux_w)
         loss.backward()
         params = [p for group in state.optimizer.param_groups for p in group['params']]
+        reduce_gradients(params)
         finite = _grads_finite(params)
         if finite:
             set_learning_rate(state.optimizer, state.schedule(state.updates))
@@ -156,7 +168,10 @@ def make_eval_step(cfg, spec: ModelSpec, model: torch.nn.Module,
                    with_loss: bool = False):
     """Forward + argmax + IoU histogram over the valid current-frame points
     (``cur_point_mask & point_mask``, and ``sample_valid`` when the batch has
-    it); with_loss adds ``compute_loss`` of the eval forward."""
+    it); with_loss adds ``compute_loss`` of the eval forward. With more than
+    one rank the histogram is summed over the ranks and the loss is the
+    global batch's, as the JAX package's replicated outputs are; the logits
+    stay this rank's."""
     criterion = build_criterion(cfg) if with_loss else ()
     aux_w = float(cfg.MODEL.AUX_LOSS_WEIGHT)
     nc = spec.num_classes
@@ -172,8 +187,8 @@ def make_eval_step(cfg, spec: ModelSpec, model: torch.nn.Module,
             if 'sample_valid' in batch:
                 # exclude epoch-padding duplicate frames from the histogram
                 valid = valid & batch['sample_valid'][:, None]
-            res = {'hist': confusion_matrix(preds, labels, nc, valid.reshape(-1)),
-                   'point_out': point_out}
+            hist = confusion_matrix(preds, labels, nc, valid.reshape(-1))
+            res = {'hist': all_reduce_sum(hist), 'point_out': point_out}
             if with_loss:
                 res['loss'] = compute_loss(out, batch, criterion, spec, aux_w)
         return res

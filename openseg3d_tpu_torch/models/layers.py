@@ -1,6 +1,7 @@
-"""Shared model layers: point MLP stacks, VFE, squeeze-excite.
+"""Shared model layers: point MLP stacks, VFE, squeeze-excite, spatial
+attention.
 
-Counterpart of ``openseg3d_tpu/models/layers.py:23-86``. Submodules carry the
+Counterpart of ``openseg3d_tpu/models/layers.py``. Submodules carry the
 names that flax gives their counterparts (``Dense_0``, ``MaskedBatchNorm_0``,
 ...), so that ``weights.load_flax_variables`` maps one parameter tree onto the
 other by name.
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.scatter import segment_max, segment_mean
+from ..ops.sparse_conv import Rulebook, apply_subm
 from .norm import MaskedBatchNorm
 
 
@@ -122,3 +124,18 @@ class FlattenSELayer(nn.Module):
         pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1)   # [B, C]
         s = torch.sigmoid(dense(self.Dense_1, F.relu(dense(self.Dense_0, pooled))))
         return x * s[:, None, :]
+
+
+class SALayer(nn.Module):
+    """Spatial attention (``layers.py:89-101``): a 27-tap submanifold conv to
+    one channel over the stage's rulebook (``apply_subm``, with its
+    gather-only backward), then a sigmoid gate on every channel. Its kernel
+    [27, Cin, 1] is the flax leaf ``kernel``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(27, channels, 1))
+
+    def forward(self, features, rulebook: Rulebook, mask):
+        gate = apply_subm(features, rulebook, self.kernel, mask, compute_dtype=features.dtype)
+        return features * torch.sigmoid(gate)

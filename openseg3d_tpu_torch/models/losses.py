@@ -2,10 +2,9 @@
 
 Counterpart of ``openseg3d_tpu/models/losses.py``: every loss takes logits
 [N, C] and int labels [N], where ignore_index (255) marks both ignored ground
-truth and padded rows, and computes in float32. Ported: cross-entropy, OHEM
-cross-entropy (keep-threshold and keep-ratio paths) and Lovasz-softmax, and
-``build_criterion``. Dice and focal wait for the rest of the port
-(``build_criterion`` raises for them).
+truth and padded rows, and computes in float32: cross-entropy, OHEM
+cross-entropy (keep-threshold and keep-ratio paths), Lovasz-softmax, Dice and
+sigmoid focal, and ``build_criterion``.
 
 Lovasz. The JAX package sorts one packed payload and gives the loss a custom
 VJP: d loss_c / d errors[i] = w[j] * 1[errors_sorted[j] > 0] at i's sorted
@@ -20,6 +19,7 @@ the loss value does not depend on it.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _valid(labels: torch.Tensor, ignore_index: int) -> torch.Tensor:
@@ -109,6 +109,38 @@ def lovasz_softmax_loss(logits, labels, ignore_index: int = 255, class_weight=No
     return (losses * present).sum() / torch.clamp(present.sum(), min=1.0)
 
 
+def dice_loss(logits, labels, ignore_index: int = 255, smooth: float = 1.0,
+              exponent: float = 2.0):
+    """Mean over classes of 1 - (2 sum p y + smooth) / (sum p^e + y^e +
+    smooth), softmax probabilities p against one-hot targets y over the
+    valid rows (``losses.py:161-172``)."""
+    valid = _valid(labels, ignore_index)
+    probs = torch.softmax(logits.float(), dim=-1)
+    safe = torch.where(valid, labels, 0).long()
+    onehot = F.one_hot(safe, logits.shape[-1]).float()
+    m = valid.float()[:, None]
+    num = 2.0 * (probs * onehot * m).sum(dim=0) + smooth
+    den = ((probs ** exponent + onehot ** exponent) * m).sum(dim=0) + smooth
+    return (1.0 - num / den).mean()
+
+
+def focal_loss(logits, labels, ignore_index: int = 255, gamma: float = 2.0,
+               alpha: float = 0.25):
+    """Sigmoid multi-label focal loss against one-hot targets, summed over
+    classes and averaged over the valid rows (``losses.py:175-188``)."""
+    valid = _valid(labels, ignore_index)
+    safe = torch.where(valid, labels, 0).long()
+    onehot = F.one_hot(safe, logits.shape[-1]).float()
+    x = logits.float()
+    p = torch.sigmoid(x)
+    pt = p * onehot + (1 - p) * (1 - onehot)
+    at = alpha * onehot + (1 - alpha) * (1 - onehot)
+    z = torch.where(onehot > 0, -x, x)
+    bce = torch.logaddexp(torch.zeros_like(z), z)
+    loss = (at * (1 - pt) ** gamma * bce).sum(dim=-1)
+    return torch.where(valid, loss, 0.0).sum() / torch.clamp(valid.sum(), min=1)
+
+
 def build_criterion(cfg, class_weight=None):
     """List of (loss_fn, weight) from ``MODEL.LOSSES``, as the JAX package's
     ``build_criterion``: class weights only when ``MODEL.USE_CLASS_WEIGHT``
@@ -130,8 +162,10 @@ def build_criterion(cfg, class_weight=None):
                 lg, lb, ignore, keep_ratio=_r, keep_thresh=_t, class_weight=cw)
         elif name == 'lovasz':
             fn = lambda lg, lb: lovasz_softmax_loss(lg, lb, ignore)   # noqa: E731
-        elif name in ('dice', 'focal'):
-            raise NotImplementedError(f'loss {name!r} is not ported yet')
+        elif name == 'dice':
+            fn = lambda lg, lb: dice_loss(lg, lb, ignore)   # noqa: E731
+        elif name == 'focal':
+            fn = lambda lg, lb: focal_loss(lg, lb, ignore)   # noqa: E731
         else:
             raise NotImplementedError(f'loss {name!r}')
         out.append((fn, float(weight)))

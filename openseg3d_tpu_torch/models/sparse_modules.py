@@ -6,9 +6,9 @@ conv at that stage. Training follows ``nn.Module.training`` (batch statistics
 in every MaskedBatchNorm). Every conv runs ``ops.sparse_conv``'s
 autograd Function, which, like the JAX package's custom VJPs, keeps only the
 conv's inputs for the backward, never the gathered neighbour rows, and
-gathers the cotangent through the transposed rulebook. SparseBasicBlock's
-squeeze-excite option (SPNet's stages 3-4) is ported; its spatial-attention
-option (``with_sa``) is used by no model and is not.
+gathers the cotangent through the transposed rulebook. SparseBasicBlock has
+the squeeze-excite option (SPNet's stages 3-4) and the spatial-attention
+option (``with_sa``, which no model of the repository sets).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sparse_conv import Rulebook, apply_subm
-from .layers import FlattenSELayer
+from .layers import FlattenSELayer, SALayer
 from .norm import MaskedBatchNorm
 
 # backbone norm: BatchNorm1d(eps=1e-3, momentum=0.01), flax momentum 0.99
@@ -56,22 +56,26 @@ class ConvModule(nn.Module):
 
 
 class SparseBasicBlock(nn.Module):
-    """conv-BN-ReLU-conv-BN [+SE] + residual + ReLU; convs carry a bias.
-    with_se scales the second BN's output by a FlattenSELayer gate."""
+    """conv-BN-ReLU-conv-BN [+SE] [+SA] + residual + ReLU; convs carry a
+    bias. with_se scales the second BN's output by a FlattenSELayer gate,
+    with_sa then by an SALayer gate."""
 
-    def __init__(self, planes: int, with_se: bool = False):
+    def __init__(self, planes: int, with_se: bool = False, with_sa: bool = False):
         super().__init__()
         self.SparseConv_0 = SparseConv(planes, planes, use_bias=True)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(planes, **BN)
         self.SparseConv_1 = SparseConv(planes, planes, use_bias=True)
         self.MaskedBatchNorm_1 = MaskedBatchNorm(planes, **BN)
         self.FlattenSELayer_0 = FlattenSELayer(planes) if with_se else None
+        self.SALayer_0 = SALayer(planes) if with_sa else None
 
     def forward(self, x, rulebook: Rulebook, mask):
         out = F.relu(self.MaskedBatchNorm_0(self.SparseConv_0(x, rulebook, mask), mask))
         out = self.MaskedBatchNorm_1(self.SparseConv_1(out, rulebook, mask), mask)
         if self.FlattenSELayer_0 is not None:
             out = self.FlattenSELayer_0(out, mask)
+        if self.SALayer_0 is not None:
+            out = self.SALayer_0(out, rulebook, mask)
         out = F.relu(out + x)
         return torch.where(mask[..., None], out, 0)
 

@@ -215,6 +215,38 @@ def permute_rows(x: torch.Tensor, fwd_idx: torch.Tensor, bwd_idx: torch.Tensor) 
 permute_rows.backwards = 0
 
 
+# flat <-> window scatter and gather (``window.py:293-328``); the model runs
+# packed windows and uses none of the three, which are public for callers
+
+def flat_to_window(feat: torch.Tensor, scatter_idx: torch.Tensor, spec: LevelSpec):
+    """feat [B, V, C], scatter_idx [B, V] (a slot of the level's W x T
+    buffer, -1 for none) -> [B, W, T, C], zeros where no row lands."""
+    b, v, c = feat.shape
+    size = spec.num_windows * spec.max_tokens
+    tgt = torch.where(scatter_idx >= 0, scatter_idx, size).long()   # size: a trash row
+    out = feat.new_zeros((b, size + 1, c)).scatter(1, tgt[..., None].expand(b, v, c), feat)
+    return out[:, :size].reshape(b, spec.num_windows, spec.max_tokens, c)
+
+
+def window_mask(scatter_idx: torch.Tensor, spec: LevelSpec):
+    """[B, W, T] bool: which slots hold a real voxel."""
+    b = scatter_idx.shape[0]
+    size = spec.num_windows * spec.max_tokens
+    tgt = torch.where(scatter_idx >= 0, scatter_idx, size).long()
+    out = torch.zeros((b, size + 1), dtype=torch.bool, device=scatter_idx.device)
+    out = out.scatter(1, tgt, True)
+    return out[:, :size].reshape(b, spec.num_windows, spec.max_tokens)
+
+
+def window_to_flat(win_feat: torch.Tensor, scatter_idx: torch.Tensor, spec: LevelSpec):
+    """[B, W, T, C] -> [B, V, C], zero where scatter_idx == -1."""
+    b, c = win_feat.shape[0], win_feat.shape[-1]
+    flat = win_feat.reshape(b, spec.num_windows * spec.max_tokens, c)
+    flat = torch.cat([flat, flat.new_zeros((b, 1, c))], dim=1)
+    idx = torch.where(scatter_idx >= 0, scatter_idx, spec.num_windows * spec.max_tokens)
+    return torch.gather(flat, 1, idx.long()[..., None].expand(-1, -1, c))
+
+
 def positional_embedding(coors_in_win, window_shape, feat_dim: int,
                          pos_temperature: float = 1000.0,
                          normalize_pos: bool = False) -> torch.Tensor:

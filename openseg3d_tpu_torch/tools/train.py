@@ -1,7 +1,10 @@
-"""Train a 3D segmentor on one GPU (or on the CPU with ``--device cpu``).
+"""Train a 3D segmentor on one GPU, on several (one process each), or on the
+CPU with ``--device cpu``.
 
     python -m openseg3d_tpu_torch.tools.train --cfg_file configs/synthetic_accuracy.yaml \
         --synthetic --save_dir runs/synth_torch --epochs 12
+    torchrun --nproc_per_node 4 -m openseg3d_tpu_torch.tools.train --launcher pytorch \
+        --cfg_file configs/waymo_one_sweep.yaml --data_dir /data/waymo --save_dir runs/exp1
 
 Counterpart of ``tools/train.py``, with its flags and its log lines, plus
 ``--device`` (default ``cuda``). Each step is ``engine.make_train_step``;
@@ -11,13 +14,21 @@ the per-step dropout generators carry on where they stopped; with
 ``--deterministic`` a resumed run ends where an uninterrupted one does, to
 the bit on the GPU too. Validation runs
 ``make_eval_step(..., with_loss=True)`` every ``--eval_epoch_interval``
-epochs. Flags for what is not ported yet raise ``NotImplementedError`` with
-their roadmap item: more than one device or ``--launcher jax`` (A10).
+epochs.
+
+``--launcher pytorch`` joins torchrun's process group (``tools/dist_train.sh``
+wraps torchrun): NCCL on the GPUs, one card per process (``cuda:LOCAL_RANK``),
+gloo with ``--device cpu``. Each process loads its shard of every global
+batch of ``--batch_size`` x world samples; the step is the JAX package's SPMD
+step on the global batch (``parallel/dist.py``): BatchNorm statistics and
+the loss over the global batch, gradients summed over the ranks. Validation
+gives one global mIoU; rank 0 logs and writes the checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import os
 import time
@@ -34,7 +45,8 @@ def parse_args(argv=None):
     p.add_argument('--batch_size', default=2, type=int,
                    help='per-process batch size')
     p.add_argument('--num_workers', default=4, type=int)
-    p.add_argument('--launcher', choices=['none', 'jax'], default='none')
+    p.add_argument('--launcher', choices=['none', 'pytorch'], default='none',
+                   help='pytorch: one process per GPU under torchrun (tools/dist_train.sh)')
     p.add_argument('--epochs', default=30, type=int)
     p.add_argument('--seed', type=int, default=None)
     p.add_argument('--deterministic', action='store_true', default=False,
@@ -43,7 +55,8 @@ def parse_args(argv=None):
                         'use atomics (the index_add_ of the devoxelize gather\'s backward) '
                         'no longer vary from run to run')
     p.add_argument('--sync_bn', action='store_true', default=False,
-                   help='accepted for parity; one device has one BatchNorm')
+                   help='accepted for parity: as under SPMD, BatchNorm statistics are '
+                        'always those of the global batch, over every rank')
     p.add_argument('--no_validate', action='store_true')
     p.add_argument('--eval_epoch_interval', default=2, type=int)
     p.add_argument('--log_iter_interval', default=10, type=int)
@@ -51,7 +64,8 @@ def parse_args(argv=None):
     p.add_argument('--synthetic', action='store_true',
                    help='train on synthetic frames (no dataset required)')
     p.add_argument('--synthetic_frames', default=64, type=int)
-    p.add_argument('--num_devices', default=0, type=int)
+    p.add_argument('--num_devices', default=0, type=int,
+                   help='GPUs to train on: one process each, under torchrun')
     p.add_argument('--device', default='cuda',
                    help="torch device to train on: 'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -91,20 +105,39 @@ def main(argv=None) -> dict:
     mIoU) per validation; 'skipped', the updates dropped by the
     non-finite guard."""
     args = parse_args(argv)
-    if args.launcher != 'none' or args.num_devices > 1:
-        raise NotImplementedError('more than one device is not ported yet (ROADMAP A10)')
-    device = resolve_device(args.device)
-    os.makedirs(args.save_dir, exist_ok=True)
+    if args.num_devices > 1 and args.launcher == 'none':
+        raise ValueError(
+            f'--num_devices {args.num_devices} trains one process per GPU: run '
+            f'torchrun --nproc_per_node {args.num_devices} -m openseg3d_tpu_torch.tools.train '
+            f'--launcher pytorch ... (or tools/dist_train.sh)')
+    from ..parallel import dist as pdist
     from ..utils.logging import get_root_logger, log_to_file
+    owned = args.launcher == 'pytorch' and not pdist.is_distributed()
+    if args.launcher == 'pytorch':
+        device_type = torch.device(args.device).type
+        pdist.init_distributed(device_type)
+        device = pdist.local_device(device_type)
+    else:
+        device = resolve_device(args.device)
     previous = (torch.are_deterministic_algorithms_enabled(),
                 torch.is_deterministic_algorithms_warn_only_enabled())
-    if args.deterministic:
-        torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        with log_to_file(get_root_logger(), os.path.join(args.save_dir, 'train.log')) as logger:
+        if args.num_devices > 1 and args.num_devices != pdist.world():
+            raise ValueError(f'--num_devices {args.num_devices} with {pdist.world()} processes')
+        os.makedirs(args.save_dir, exist_ok=True)
+        if args.deterministic:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        # after joining the group: the logger's level follows the rank, and
+        # only rank 0 writes train.log
+        logger = get_root_logger()
+        log = (log_to_file(logger, os.path.join(args.save_dir, 'train.log'))
+               if pdist.rank() == 0 else contextlib.nullcontext(logger))
+        with log as logger:
             return _train(args, device, logger)
     finally:
         torch.use_deterministic_algorithms(previous[0], warn_only=previous[1])
+        if owned:
+            pdist.destroy()
 
 
 def _train(args, device, logger) -> dict:
@@ -113,13 +146,15 @@ def _train(args, device, logger) -> dict:
     from ..data.loader import DataLoader
     from ..engine import TrainState, build_segmentor, make_eval_step, make_train_step
     from ..models.optim import build_optimizer, build_schedule
+    from ..parallel import dist as pdist
     from ..utils.checkpoint import (latest_checkpoint, load_pretrained, restore_checkpoint,
                                     save_checkpoint)
     from ..utils.random import init_random_seed, set_random_seed
     from ..utils.timer import Timer
     from ..weights import init_weights
 
-    logger.info('process 0/1, device: %s', torch.cuda.get_device_name(device)
+    logger.info('process %d/%d, backend: %s, device: %s', pdist.rank(), pdist.world(),
+                pdist.backend(), f'{device} ({torch.cuda.get_device_name(device)})'
                 if device.type == 'cuda' else device)
 
     seed = init_random_seed(args.seed)

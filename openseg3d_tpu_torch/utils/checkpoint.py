@@ -7,7 +7,8 @@ state_dict (parameters and BatchNorm statistics), the optimizer's state_dict,
 A save writes a temporary file and renames it into place, so a save that was
 cut off never looks complete (the original's ``_is_complete``). Files are
 read with ``weights_only=True``: tensors and plain containers, no arbitrary
-objects.
+objects. With more than one rank, rank 0 writes and every rank waits at a
+barrier; each rank restores onto its own model's device.
 """
 
 from __future__ import annotations
@@ -17,20 +18,24 @@ import re
 
 import torch
 
+from ..parallel.dist import barrier, rank
+
 _NAME = re.compile(r'^epoch_(\d+)\.pt$')
 
 
 def save_checkpoint(save_dir: str, epoch: int, state, logger=None) -> None:
-    """Write ``epoch_{epoch}.pt``."""
-    if logger:
-        logger.info('Save checkpoint at epoch %d', epoch)
-    path = os.path.join(save_dir, f'epoch_{epoch}.pt')
-    payload = {'model': state.model.state_dict(),
-               'optimizer': state.optimizer.state_dict(),
-               'step': state.step, 'updates': state.updates, 'epoch': epoch}
-    tmp = f'{path}.{os.getpid()}.tmp'
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    """Write ``epoch_{epoch}.pt`` (rank 0), then wait for it on every rank."""
+    if rank() == 0:
+        if logger:
+            logger.info('Save checkpoint at epoch %d', epoch)
+        path = os.path.join(save_dir, f'epoch_{epoch}.pt')
+        payload = {'model': state.model.state_dict(),
+                   'optimizer': state.optimizer.state_dict(),
+                   'step': state.step, 'updates': state.updates, 'epoch': epoch}
+        tmp = f'{path}.{os.getpid()}.tmp'
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    barrier()
 
 
 def latest_checkpoint(save_dir: str) -> str | None:

@@ -10,7 +10,7 @@ name:
   * ``nn.ModuleList``: an ``nn.scan`` over layers; every leaf below it is
     stacked on axis 0, and layer i takes slice i;
   * anything else: parameters and buffers by their own names (sparse-conv
-    ``kernel [27, Cin, Cout]`` as it is, OCR's ``transform_kernel`` too,
+    ``kernel [27, Cin, Cout]`` as it is, SALayer's ``kernel [27, Cin, 1]``, OCR's ``transform_kernel`` too,
     DeepFusion's ``kv_proj`` (a DenseGeneral: ``kernel [Ci, 2, hc]``,
     ``bias [2, hc]``), ``in_proj_kernel [C, 3C]``, ``in_proj_bias``, ``tau``, BN
     ``scale``/``bias``/``mean``/``var``).
@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from .models.deep_fusion import DenseGeneral
+from .models.layers import SALayer
 from .models.norm import MaskedBatchNorm
 from .models.ocr import OCRLayer
 from .models.sparse_modules import SparseConv
@@ -174,10 +175,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(mod, DenseGeneral):
                 mod.kernel.copy_(normal(mod.kernel.shape, math.sqrt(2.0 / mod.kernel.shape[0])))
                 mod.bias.zero_()
-            elif isinstance(mod, SparseConv):
+            elif isinstance(mod, (SparseConv, SALayer)):
                 k3, cin, _ = mod.kernel.shape
                 mod.kernel.copy_(normal(mod.kernel.shape, math.sqrt(2.0 / (k3 * cin))))
-                if mod.bias is not None:
+                if getattr(mod, 'bias', None) is not None:
                     mod.bias.zero_()
             elif isinstance(mod, WindowAttention):
                 c, c3 = mod.in_proj_kernel.shape

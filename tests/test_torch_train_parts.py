@@ -126,7 +126,7 @@ def test_warmup_poly_schedule_equals_jax():
     assert mine(0) == pytest.approx(0.05 * 0.001)
     assert mine(12) == 0.0
     with pytest.raises(NotImplementedError):
-        optim.build_schedule(tiny_cfg(TRAIN={'LR_SCHEDULER': 'cosine_annealing'}), 1, 1)
+        optim.build_schedule(tiny_cfg(TRAIN={'LR_SCHEDULER': 'no_such_schedule'}), 1, 1)
 
 
 @pytest.mark.parametrize('name', ['sgd', 'adamw'])
