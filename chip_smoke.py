@@ -191,6 +191,19 @@ Phases (each asserts or raises; nothing is caught):
      SparseBasicBlock with_sa, MaskedLayerNorm, the window helpers,
      query_and_group, interpolation, FPS and sectorized FPS of FPS_SAMPLES
      on the bench frame's voxel centres).
+  H. the measuring entry points, in-process through main([...]): the bench
+     (openseg3d_tpu_torch.bench, BENCH_ITERS steps after the first, at its
+     own defaults: 163840 points, --max_voxels 98304) for Segformer infer,
+     train_fwd and train, SPNet train and Segformer with image features
+     infer: one finite JSON line each, and the launches each wrapper counted
+     equal to the run's launches a step (BENCH_RUNS) times its calls, as the
+     line's launches_per_step says too; tools.profile_step --mode train
+     --steps 2 --by_module: B2f, B2b and B3 under their kernel names with
+     their launches a step (PROFILED_KERNELS), the attention and knn buckets,
+     the by-module table's ranges and backward nodes; measure_capacities on
+     2 bench frames on the card, each stage's voxel count equal to
+     verify_capacities' numpy count on the same frames; verify_capacities
+     at the default RUNTIME on the 4 bench frames: zero drops.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1.
 Every time printed comes with the card's name and power limit.
@@ -215,6 +228,10 @@ for _name in ('jax', 'jaxlib', 'flax', 'optax', 'openseg3d_tpu', 'bench'):
     sys.modules[_name] = None
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+from openseg3d_tpu_torch.utils.profiling import (busy_ms, kernel_name,  # noqa: E402
+                                                 named_kernels, range_kernels, top_kernels,
+                                                 trace)
 N_POINTS = 163840            # one bench.py frame
 IMAGE_FEATURES = {'USE_IMAGE_FEATURE': True, 'DIM_IMAGE_FEATURE': 28}
 # device TTA against host TTA (phase E): argmax agreement over the frame,
@@ -292,18 +309,6 @@ def attention_case(gen, n, t, c, nw, dtype, nhead=8):
     return packed, bias, torch.tensor([nw], dtype=torch.int32, device=dev)
 
 
-def kernel_name(mangled: str) -> str:
-    """'name<template int>' of a mangled kernel whose name ends in _kernel:
-    an Itanium-mangled identifier is its length in digits, then the name."""
-    import re
-    for run in re.finditer(r'\d+', mangled):
-        for start in range(run.start(), run.end()):
-            end = run.end() + int(mangled[start:run.end()])
-            ident = mangled[run.end():end]
-            if ident.endswith('_kernel'):
-                arg = re.match(r'ILi(\d+)E', mangled[end:])
-                return f'{ident}<{arg.group(1)}>' if arg else ident
-    return mangled
 
 
 def ptxas_usage(log: str):
@@ -768,69 +773,14 @@ def frame_batch(cfg, device, cloud=None):
     return to_device(batch, device), int(batch['voxel_mask'].sum())
 
 
-def busy_ms(events) -> float:
-    """Milliseconds during which at least one kernel, copy or memset ran."""
-    spans = sorted((e['ts'], e['ts'] + e['dur']) for e in events
-                   if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'))
-    total, lo, hi = 0.0, None, None
-    for s, e in spans:
-        if hi is None or s > hi:
-            total += 0.0 if hi is None else hi - lo
-            lo, hi = s, e
-        else:
-            hi = max(hi, e)
-    return (total + (0.0 if hi is None else hi - lo)) / 1e3
 
 
-def trace(fn):
-    """Run fn() once under torch.profiler. Returns (chrome trace events,
-    wall ms of the run by CUDA events)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-        path = os.path.join(tmp, 'trace.json')
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)['traceEvents']
-    return events, start.elapsed_time(end)
 
 
-def range_kernels(events, name):
-    """(number of record_function ranges called name, device ms and count
-    of the kernels launched inside them, matched by correlation id)."""
-    ranges = [(e['ts'], e['ts'] + e['dur']) for e in events
-              if e.get('cat') == 'user_annotation' and e.get('name') == name]
-    launched = {e.get('args', {}).get('correlation') for e in events
-                if e.get('cat') in ('cuda_runtime', 'cuda_driver')
-                and any(lo <= e['ts'] <= hi for lo, hi in ranges)}
-    durs = [e['dur'] for e in events if e.get('cat') == 'kernel'
-            and e.get('args', {}).get('correlation') in launched - {None}]
-    return len(ranges), sum(durs) / 1e3, len(durs)
 
 
-def named_kernels(events, *names):
-    """(device ms, count) of the kernels whose name contains every one of
-    `names`."""
-    durs = [e['dur'] for e in events
-            if e.get('cat') == 'kernel' and all(n in e['name'] for n in names)]
-    return sum(durs) / 1e3, len(durs)
 
 
-def top_kernels(events, k=12):
-    """The k kernel names with the most device time: [(name, ms, count)]."""
-    by_name = {}
-    for e in events:
-        if e.get('cat') == 'kernel':
-            ms, n = by_name.get(e['name'], (0.0, 0))
-            by_name[e['name']] = (ms + e['dur'] / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:k]
-    return [(name[:90], round(ms, 3), n) for name, (ms, n) in top]
 
 
 def profile_forward(forward, batch, core):
@@ -2474,6 +2424,102 @@ def rest_against_cpu(smi, cfg, batch):
     return worst, fps
 
 
+# phase H: the bench's calls a run (the first, then --iters), and the
+# launches a step of each of its runs (the config's 105 attention levels
+# and layers; B3 once a step with the loss)
+BENCH_ITERS = 5
+BENCH_RUNS = (
+    ('Segformer infer', ['--mode', 'infer'], {'B1': 105}),
+    ('Segformer train_fwd', ['--mode', 'train_fwd'], {'B2f': 105, 'B3': 1}),
+    ('Segformer train', ['--mode', 'train'], {'B2f': 105, 'B2b': 105, 'B3': 1}),
+    ('SPNet train', ['--mode', 'train', '--segmentor', 'spnet'], {'B3': 1}),
+    ('Segformer+DeepFusion infer', ['--mode', 'infer', '--image_feature'], {'B1': 105}),
+)
+# the kernels of a Segformer train step as the profiler names them, and their
+# launches a step: B2f; B2b's dq pass and dk/dv pass; B3's search and combine
+PROFILED_KERNELS = {'window_attention_train_fwd': 105, 'window_attention_train_dq': 105,
+                    'window_attention_train_dkdv': 105, 'nearest_point_kernel': 1,
+                    'nearest_point_combine_kernel': 1}
+
+
+def run_measuring_tools(smi):
+    """Phase H: the port's measuring entry points on the card, in-process
+    through main([...]): the bench in each run of BENCH_RUNS (one JSON line,
+    finite, the launches each wrapper counted equal to the run's launches a
+    step times its calls, and the line's own launches_per_step), then
+    profile_step --mode train --steps 2 --by_module (B2f, B2b and B3 under
+    their kernel names with their launches a step, the by-module table),
+    then measure_capacities on 2 bench frames on the card (each stage's
+    voxel count equal to verify_capacities' numpy count on the same frames)
+    and verify_capacities at the default RUNTIME: zero drops. Returns
+    ({run: bench line}, profile_step's result)."""
+    import contextlib
+    import io
+    import math
+    from openseg3d_tpu_torch import bench
+    from openseg3d_tpu_torch.tools import measure_capacities, profile_step, verify_capacities
+    counters = model_counters()
+    names = {'B1': 'window_attention_packed', 'B2f': 'window_attention_train_forward',
+             'B2b': 'window_attention_train_backward', 'B3': 'nearest_point'}
+    lines = {}
+    for label, argv, per_step in BENCH_RUNS:
+        for c in counters.values():
+            c.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = bench.main(argv + ['--iters', str(BENCH_ITERS)])
+        launches = {k: c.launches for k, c in counters.items()}
+        printed = out.getvalue().strip().splitlines()
+        print(f'H bench {label}: step {res["step_ms"]} ms, {res["value"]} Mpoints/s, first step '
+              f'{res["first_step_s"]} s, build {res["build_s"]} s, launches {launches} in '
+              f'{BENCH_ITERS + 1} calls, on {smi}', flush=True)
+        assert len(printed) == 1 and json.loads(printed[0]) == res, printed
+        assert all(math.isfinite(res[k]) for k in ('value', 'step_ms', 'first_step_s')), res
+        want = {k: per_step.get(k, 0) * (BENCH_ITERS + 1) for k in counters}
+        assert launches == want, (label, launches, want)
+        assert res['launches_per_step'] == dict(
+            {names[k]: per_step.get(k, 0) for k in names}, fused_window_attention=0), res
+        lines[label] = res
+
+    # the profiler, by kernel and by module
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = profile_step.main(['--mode', 'train', '--steps', '2', '--by_module',
+                                  '--top', '400', '--trace_dir', tmp])
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f'H profile_step ({time.perf_counter() - t0:.1f} s): {prof["device_ms_per_step"]:.3f} '
+          f'device ms a step (busy {prof["busy_ms_per_step"]:.3f}), by bucket '
+          f'{ {k: round(v, 3) for k, v in prof["by_bucket"].items()} }, launches {launches} in '
+          f'3 steps, on {smi}', flush=True)
+    assert launches == {'B1': 0, 'B2f': 315, 'B2b': 315, 'B3': 3}, launches
+    for part, per_step in PROFILED_KERNELS.items():
+        n = sum(c for name, _, c in prof['top'] if part in name)
+        assert n == per_step, (part, n)
+    assert prof['by_bucket']['attention'] > 0 and prof['by_bucket']['knn'] > 0, prof
+    for module in ('PointBranch_0', 'PointTransformer_0.ConvModule_0',
+                   'PointTransformer_0.SWFormerBlock_3', 'PointTransformer_0.UpBlock_3',
+                   'SegmentorHead_0', 'structure', 'window_partition_0', 'loss'):
+        assert any(k.startswith(module) for k in prof['by_module']), (module, prof['by_module'])
+    assert any(k.startswith('backward: ') for k in prof['by_module'])
+
+    # the capacity tools: measure on the card, verify on the host
+    t0 = time.perf_counter()
+    measured = measure_capacities.main(['--frames', '2', '--seed', '0'])
+    verified = verify_capacities.main([])
+    print(f'H capacities ({time.perf_counter() - t0:.1f} s): measured on 2 bench frames, stage '
+          f'occupancy {measured["occupancy"]}, ratios {measured["ratios"]}; verify at the '
+          f'default RUNTIME, {len(verified["voxels"])} frames: {verified["violations"]} '
+          f'capacity violations; on {smi}', flush=True)
+    assert measured['occupancy'] == [max(v) for v in zip(*verified['voxels'][:2])], \
+        (measured, verified)
+    assert verified['violations'] == 0, verified
+    return lines, prof
+
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2654,6 +2700,12 @@ def main() -> int:
     rest = rest_against_cpu(smi, cfg, batch)
     print(f'phase G3: {time.perf_counter() - t0:.1f} s', flush=True)
 
+    # H. the measuring entry points: the bench in its modes, the profiler,
+    # the capacity tools
+    t0 = time.perf_counter()
+    bench_lines, profiled = run_measuring_tools(smi)
+    print(f'phase H: {time.perf_counter() - t0:.1f} s', flush=True)
+
     kp, pp = tr['prof'], tr['plain_prof']
     rows = [
         ('window_attention_packed', 'window_attention.cu', 'attention.py:317', launches,
@@ -2694,6 +2746,12 @@ def main() -> int:
           f'{[round(r["bf16"]["all_reduce_device_ms"], 3) for r in dp]} ms a rank; torchrun '
           f'(NCCL) {torchrun_s:.1f} s; the last modules on the card, max abs difference from '
           f'the CPU {max(rest[0].values()):.3g}, FPS indices equal; on {smi}', flush=True)
+    print(f'measuring entry points (bench at its own defaults, --max_voxels 98304, '
+          f'{BENCH_ITERS} steps after the first): step ms '
+          f'{ {k: v["step_ms"] for k, v in bench_lines.items()} }; profile_step train, '
+          f'device ms a step by bucket '
+          f'{ {k: round(v, 3) for k, v in profiled["by_bucket"].items()} }; on {smi}',
+          flush=True)
     print(json.dumps({'kernels': [{
         'name': name,
         'route': 'cuda',

@@ -1,8 +1,7 @@
 """Configuration: the JAX package's schema and defaults, without its import.
 
-A copy of ``openseg3d_tpu/config.py`` (``ConfigDict`` with its pickling,
-``default_config``, ``cfg_from_file``, ``grid_size``; not its copying
-helpers), so
+A copy of ``openseg3d_tpu/config.py`` (``ConfigDict`` with its pickling and
+``unfrozen_copy``, ``default_config``, ``cfg_from_file``, ``grid_size``), so
 that the port's runtime path imports nothing of the JAX package. The
 defaults are the same values; the reasons for each capacity and ladder are
 documented at the original.
@@ -15,6 +14,7 @@ without it.
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
 import numpy as np
@@ -66,6 +66,14 @@ class ConfigDict(dict):
                 v.freeze()
         object.__setattr__(self, '_frozen', True)
         return self
+
+    def unfrozen_copy(self) -> 'ConfigDict':
+        """A deep, writable copy: the route to a change the strict merge
+        refuses, such as new keys under MODEL.LOSSES."""
+        out = ConfigDict()
+        for k, v in self.items():
+            out[k] = v.unfrozen_copy() if isinstance(v, ConfigDict) else copy.deepcopy(v)
+        return out
 
 
 def _ladder(ts, top=800):

@@ -11,7 +11,8 @@ SGD step, abs/rel 1e-4; dropout off on both sides and the same aux labels, as
 in ``tests/test_torch_train.py``), in which every one of the 43 sparse
 convs runs the gather-only backward; on a second batch, not picked for its
 conditioning, the loss and the BatchNorm statistics. The bf16 forward is held to
-BF16_LOGIT_TOL of the largest logit, as the Segformer's is.
+BF16_LOGIT_TOL of the largest logit, as the Segformer's is. The two train
+steps are in ``tests/test_torch_spnet_train.py``.
 """
 
 import functools
@@ -30,13 +31,10 @@ from openseg3d_tpu_torch.data.batch import to_device
 from openseg3d_tpu_torch.engine import build_segmentor, make_eval_step
 from openseg3d_tpu_torch.models.ocr import OCRLayer
 from openseg3d_tpu_torch.models.sparse_modules import SparseConv
-from openseg3d_tpu_torch.ops.knn import nearest_point
-from openseg3d_tpu_torch.ops.sparse_conv import apply_sparse_conv
 from openseg3d_tpu_torch.weights import init_weights, load_flax_variables, to_flax_variables
 
 from helpers import synthetic_batch, tiny_cfg
 from test_torch_segformer import BF16_LOGIT_TOL, TOL, _randomise
-from test_torch_train import _assert_trees_close, _leaves, _step_both
 
 SGD = {'OPTIMIZER': 'sgd', 'LR': 50.0, 'MOMENTUM': 0.9, 'WEIGHT_DECAY': 1e-4}
 N_CONVS = 43      # stem 1, stage 1 4, stages 2-4 7 each, OCR 1, decoder 16
@@ -102,66 +100,6 @@ def test_spnet_eval_histogram_matches_jax(variables):
     res = make_eval_step(cfg, spec, model)(to_device(nb, 'cpu'))
     np.testing.assert_allclose(res['point_out'].numpy(), np.asarray(ref['point_out']), **TOL)
     np.testing.assert_array_equal(res['hist'].numpy(), np.asarray(ref['hist']))
-
-
-def test_spnet_train_step_matches_jax(monkeypatch):
-    """Loss, gradients, BatchNorm statistics and parameters after one SGD
-    step; each of the 43 convs (the OCR transform's included) ran its
-    gather-only backward once, and the CPU launched no 1-NN kernel.
-
-    The batch (seed 5) is the best conditioned of seeds 0-11 for the step's
-    discrete choices: every OHEM probability lies >= 0.31 from the keep
-    threshold and every Lovasz error >= 0.035 from one of another
-    foreground value, so no rounding difference changes a kept set or a
-    sort order. Every leaf is held within abs/rel 1e-4, element by element,
-    except those of the point encoder: its features meet the max-VFE, where
-    the top two points of a voxel channel can lie 2.3e-4 apart, and a
-    rounding difference that swaps them sends that channel's gradient to
-    the other point. Moving the weights by 1e-7 relative noise moves JAX's
-    own gradient there by up to 1.6e-3 of the leaf's largest magnitude
-    (and nowhere else beyond 1e-4), so those leaves are held within 1e-4 +
-    ENCODER_TOL times their largest magnitude."""
-    apply_sparse_conv.backwards = 0
-    before = nearest_point.launches
-    cfg = _cfg()
-    metrics, grads, new_stats, new_params, jloss, jgrads, jstats, jparams, _ = \
-        _step_both(monkeypatch, cfg, synthetic_batch(cfg, batch_size=2, seed=5))
-    assert apply_sparse_conv.backwards == N_CONVS
-    assert nearest_point.launches == before
-    np.testing.assert_allclose(float(metrics['loss']), float(jloss), **TOL)
-    mine, ref = dict(_leaves(grads)), dict(_leaves(jgrads))
-    assert set(mine) == set(ref)
-    for path in sorted(ref):
-        if path[:2] == ('PointBranch_0', 'PointEncoder_0'):
-            err = float(np.abs(mine[path] - ref[path]).max())
-            assert err <= TOL['atol'] + ENCODER_TOL * float(np.abs(ref[path]).max()), \
-                (path, err)
-        else:
-            np.testing.assert_allclose(mine[path], ref[path], err_msg='/'.join(path), **TOL)
-    _assert_trees_close(new_stats, jstats, 'batch_stats')
-    _assert_trees_close(new_params, jparams, 'params')
-    assert any(np.abs(g).max() > 0 for p, g in mine.items() if 'OCRLayer_0' in p)
-
-
-def test_spnet_train_step_on_an_ordinary_batch(monkeypatch):
-    """One train step on a batch that was not picked for its conditioning
-    (seed 1, where OHEM's kept set and the max-VFE route gradients to other
-    points than in JAX): the loss and the BatchNorm statistics, which no
-    discrete choice of the backward touches, within abs/rel 1e-4, and all 43
-    gather-only backwards. The gradients are printed, not held: the worst
-    leaf differs by several percent of its largest magnitude."""
-    apply_sparse_conv.backwards = 0
-    cfg = _cfg()
-    metrics, grads, new_stats, _, jloss, jgrads, jstats, _, _ = \
-        _step_both(monkeypatch, cfg, synthetic_batch(cfg, batch_size=2, seed=1))
-    assert apply_sparse_conv.backwards == N_CONVS
-    np.testing.assert_allclose(float(metrics['loss']), float(jloss), **TOL)
-    _assert_trees_close(new_stats, jstats, 'batch_stats')
-    mine, ref = dict(_leaves(grads)), dict(_leaves(jgrads))
-    worst = max(((float(np.abs(mine[p] - ref[p]).max()) - TOL['atol'])
-                 / float(np.abs(ref[p]).max()), '/'.join(p)) for p in ref)
-    print(f'worst gradient leaf: {worst[1]}, {worst[0]:.3g} of its largest magnitude '
-          f'beyond {TOL["atol"]}')
 
 
 def test_spnet_structure_and_seeded_init():

@@ -9,7 +9,8 @@ points (rho, phi, z, x, y, features), DIM_POINT + 2 input channels). Each
 at a tiny depth and capacity, from random weights: the float32 eval forward
 (abs/rel 1e-4) and one float32 train step (the loss, every gradient, the
 BatchNorm statistics and the parameters after one SGD step, abs/rel 1e-4,
-as in ``tests/test_torch_train.py``).
+as in ``tests/test_torch_train.py``), the latter in
+``tests/test_torch_variants_train.py``.
 """
 
 import functools
@@ -31,7 +32,6 @@ from openseg3d_tpu_torch.weights import load_flax_variables
 
 from helpers import TINY_OVERRIDES, synthetic_batch, tiny_cfg
 from test_torch_segformer import TOL, _randomise
-from test_torch_train import _assert_trees_close, _step_both
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = {'SEGMENTOR': 'segformer', 'DEPTHS': [1, 1, 1, 1], 'DROP_PATH_RATE': 0.0}
@@ -101,14 +101,3 @@ def test_forward_matches_jax(case):
     assert not out['point_out'].numpy()[~cur].any()
     np.testing.assert_array_equal(out['aux_voxel_coords'].numpy(),
                                   np.asarray(ref['aux_voxel_coords']))
-
-
-@pytest.mark.parametrize('case', sorted(CASES))
-def test_train_step_matches_jax(monkeypatch, case):
-    cfg, nb = CASES[case]()
-    metrics, grads, new_stats, new_params, jloss, jgrads, jstats, jparams, _ = \
-        _step_both(monkeypatch, cfg, nb)
-    np.testing.assert_allclose(float(metrics['loss']), float(jloss), **TOL)
-    _assert_trees_close(grads, jgrads, 'grad')
-    _assert_trees_close(new_stats, jstats, 'batch_stats')
-    _assert_trees_close(new_params, jparams, 'params')
