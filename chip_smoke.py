@@ -8,6 +8,12 @@ Run from the root of the repository, with no arguments:
 Phases (each asserts or raises; nothing is caught):
   1. device: the card's name and power limit; TF32 off for float32 matmuls
      and convolutions, so float32 comparisons are float32;
+  1b. host voxelizer: the C++ voxelizer (openseg3d_tpu_torch/native, g++
+     at first use) must build and be VoxelGenerator's path here; the bench
+     frame and the 3-sweep frame, voxelized on it, must have the batch
+     digests stored in the reference files (written on another host: the
+     same ids and coords to the bit); its host ms on the bench cloud beside
+     the numpy path's;
   2. build: compiles every kernel source of openseg3d_tpu_torch/csrc/ with
      nvcc for sm_90a, one nvcc process each, all started together; prints
      each kernel's registers and spills (ptxas); the bf16 tensor-core
@@ -128,7 +134,16 @@ Phases (each asserts or raises; nothing is caught):
      within twice the disagreeing points, the loss within 1e-3; bfloat16
      agreement no lower than JAX bf16's own minus 0.5 points and sampled
      logits within twice JAX bf16's own error; the aux coords and mask
-     equal. Prints the measured numbers;
+     equal. Prints the measured numbers. Then the train reference
+     (waymo_one_sweep_train: the JAX package's float32 train step at full
+     capacity on the bench frame, dropout and drop path off, its aux labels
+     stored): the port's float32 step (B2f and B2b's FMA bodies) on the
+     stored aux labels, held to parity.compare_with_train_reference: the
+     loss within 1e-4 relative, each gradient leaf's sampled values and L2
+     norm within (1e-4 + 2 x JAX's own movement under 1e-7 relative weight
+     noise) x (1 + its largest magnitude), the BatchNorm statistics within
+     1e-4 x (1 + their largest); prints the worst leaf and those past half
+     their gate;
   C. configs/waymo_multi_sweeps.yaml on the 3-sweep reference frame
      (180222 points, 60074 current) and configs/waymo_one_sweep_cylinder.yaml
      on the bench frame in (rho, phi, z, x, y, features): the bf16 eval step
@@ -159,10 +174,11 @@ Phases (each asserts or raises; nothing is caught):
      share of points whose candidate shell yields fewer than 8 and 16
      neighbours by range band; SPNet with image features: an eval step and
      a train step, finite, with launch counts;
-  B. the rehearsal through the port's tools on a tree in the offline
-     parser's format with a test-set frame list (data/synthetic.make_tree):
-     train 2 steps, eval, then tools.test under the stand-in protos
-     (OPENSEG3D_ALLOW_WOD_STUB=1); the decoded submission holds each frame's
+  B. the rehearsal through python -m openseg3d_tpu_torch.tools.rehearsal
+     (--frames 2, bench-size frames, on a tree in the offline parser's
+     format with a test-set frame list, data/synthetic.make_tree): train 2
+     steps, eval, then tools.test under the stand-in protos
+     (OPENSEG3D_ALLOW_WOD_STUB=1), each tool in its own process; the decoded submission holds each frame's
      eval-forward argmax over its current points, scattered through
      points_ri; then the same on a tree with synthetic image_feature/ files
      and DATASET.USE_IMAGE_FEATURE, whose checkpoint holds DeepFusion's
@@ -1371,14 +1387,63 @@ def model_counters():
             'B2b': window_attention_train_backward, 'B3': nearest_point}
 
 
+def check_host_voxelizer(smi):
+    """The host voxelizer: the C++ path (openseg3d_tpu_torch/native, built
+    with g++) must be taken here, and the frames of the reference files
+    (the bench frame and the 3-sweep frame), voxelized on it, must have the
+    digests recorded in the files, which were written on another host: the
+    same ids and coords to the bit. Times the C++ and the numpy path on the
+    bench cloud (host ms, median of 5)."""
+    import numpy as np
+    from openseg3d_tpu_torch import native, parity
+    from openseg3d_tpu_torch.core.voxelizer import points_to_voxel
+    from openseg3d_tpu_torch.data.synthetic import bench_cloud
+    assert native.available(), f'the C++ voxelizer did not build: {native.build_error()}'
+    print(f'host voxelizer: native (C++, {native.library_path().relative_to(REPO)})', flush=True)
+    frames = {}
+    for name in ('waymo_one_sweep', 'waymo_multi_sweeps'):
+        ref = parity.load_reference(name)
+        cfg = parity.reference_config(name)
+        batch = parity.reference_frame(cfg, parity.REFERENCES[name][2])
+        got = parity.batch_digests(batch)
+        want = dict(zip(ref['batch_keys'], ref['batch_digests']))
+        assert got == want, {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                             if got.get(k) != want.get(k)}
+        frames[name] = int(batch['voxel_mask'].sum())
+    cfg = parity.reference_config('waymo_one_sweep')
+    pts = bench_cloud(cfg, N_POINTS)['points']
+    vs, rg = cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE
+    ms = {}
+    for label, fn in (('native', native.native_points_to_voxel), ('numpy', points_to_voxel)):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(pts, vs, rg)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[label] = statistics.median(times)
+    a, b = native.native_points_to_voxel(pts, vs, rg), points_to_voxel(pts, vs, rg)
+    moved = int((a[1] != b[1]).sum())
+    print(f'host voxelizer: the reference frames\' ids and coords equal the files\' '
+          f'(live voxels {frames}); the bench cloud ({N_POINTS} points) in '
+          f'{ms["native"]:.2f} ms native, {ms["numpy"]:.2f} ms numpy (host, median of 5; '
+          f'{moved} point ids differ between the two paths), on {smi}', flush=True)
+    return ms
+
+
 def check_references(smi):
     """Phase A: the port on the card against each reference file of the
-    JAX package's eval step (parity.REFERENCES), in float32 (B1's FMA body)
-    and in bfloat16, with parity.compare_with_reference's gates (it raises
-    on a failed one). Returns {name: {dtype: measured numbers}}."""
+    JAX package's eval step (parity.EVAL_REFERENCES), in float32 (B1's FMA
+    body) and in bfloat16, with parity.compare_with_reference's gates (it
+    raises on a failed one); then its float32 train step against each
+    train reference (parity.TRAIN_REFERENCES: the JAX package's full-size
+    train step, B2f and B2b's FMA bodies here) with
+    parity.compare_with_train_reference's gates. Returns ({name: {dtype:
+    measured numbers}}, {name: the train step's numbers})."""
+    import gc
+    import torch
     from openseg3d_tpu_torch import parity
-    out = {}
-    for name in sorted(parity.REFERENCES):
+    out, train = {}, {}
+    for name in parity.EVAL_REFERENCES:
         t0 = time.perf_counter()
         out[name] = res = parity.check_reference(name, ('float32', 'bfloat16'), 'cuda')
         for dtype, m in res.items():
@@ -1391,7 +1456,18 @@ def check_references(smi):
                   f'{m["loss_rel"]:.3g}), class sums {m["class_sum_rel"]:.3g}, aux coords and '
                   f'mask equal {m["aux_equal"]}; gates {m["gates"]}', flush=True)
         print(f'(A) {name}: {time.perf_counter() - t0:.1f} s', flush=True)
-    return out
+    for name in parity.TRAIN_REFERENCES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train[name] = m = parity.check_train_reference(name, 'cuda')
+        print(f'(A) {name} float32 train step: loss {m["loss"]:.7g} vs {m["ref_loss"]:.7g} (rel '
+              f'{m["loss_rel"]:.3g}); {m["leaves"]} gradient and BatchNorm leaves, worst '
+              f'{m["worst"]} at {m["worst_ratio"]:.3g} of its gate ({m["worst_err"]:.3g} of '
+              f'{m["worst_gate"]:.3g}); over half their gate: {m["over_half"] or "none"}; the '
+              f'step {m["seconds"]:.1f} s, the check {time.perf_counter() - t0:.1f} s, on {smi}',
+              flush=True)
+    return out, train
 
 
 def run_variant(label, cfg, batch, smi, timed=True, index_adds=None):
@@ -1600,17 +1676,19 @@ def run_spnet_learning(smi):
 
 
 def run_rehearsal(smi, image_feature_dim=None):
-    """Phase B: the port's command-line tools on a tree in the offline
-    parser's format with a test-set frame list (data/synthetic.make_tree,
-    bench-frame clouds): tools.train for 2 steps on
-    configs/waymo_one_sweep.yaml, tools.eval on the tree, then tools.test
-    with OPENSEG3D_ALLOW_WOD_STUB=1. The decoded submission holds every
-    testing frame, and each frame's range images equal the eval forward's
-    argmax over its current points (the newest checkpoint's weights)
-    scattered through points_ri. With image_feature_dim: the tree has
-    image_feature/ files (synthetic) and the config DATASET.USE_IMAGE_FEATURE,
-    so DeepFusion trains, evaluates and serves; the checkpoint must hold its
-    leaves; then 2 epochs with --deterministic and the augmentation off,
+    """Phase B: python -m openseg3d_tpu_torch.tools.rehearsal (2 frames of
+    the bench cloud on a tree in the offline parser's format with a
+    test-set frame list, data/synthetic.make_tree, at full width and the
+    production capacities): tools.train for 2 steps on
+    configs/waymo_one_sweep.yaml, tools.eval --no_tta, then tools.test with
+    OPENSEG3D_ALLOW_WOD_STUB=1, each in its own process. The decoded
+    submission holds every testing frame, and each frame's range images
+    equal the eval forward's argmax over its current points (the newest
+    checkpoint's weights) scattered through points_ri. With
+    image_feature_dim: a config with DATASET.USE_IMAGE_FEATURE passed as
+    --cfg_file on a tree with image_feature/ files (synthetic), so DeepFusion
+    trains, evaluates and serves; the checkpoint must hold its leaves; then
+    on the same tree 2 epochs with --deterministic and the augmentation off,
     and epoch 2 resumed from epoch_1.pt must end as the uninterrupted run
     did (as 7b: the same counts, every tensor within 1e-6 of the other's
     largest)."""
@@ -1621,11 +1699,10 @@ def run_rehearsal(smi, image_feature_dim=None):
     from openseg3d_tpu_torch.data.synthetic import make_tree
     from openseg3d_tpu_torch.data.waymo_dataset import WaymoDataset
     from openseg3d_tpu_torch.engine import build_segmentor, make_forward
-    from openseg3d_tpu_torch.tools import eval as eval_tool
-    from openseg3d_tpu_torch.tools import test as test_tool
+    from openseg3d_tpu_torch.tools import rehearsal
     from openseg3d_tpu_torch.tools import train as train_tool
     from openseg3d_tpu_torch.utils import wod_stub
-    from openseg3d_tpu_torch.utils.checkpoint import latest_checkpoint
+    from openseg3d_tpu_torch.utils.checkpoint import latest_checkpoint, load_model
     from openseg3d_tpu_torch.utils.submission import assemble_range_image_labels
     cfg_file = os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml')
     n_frames, device = 2, 'cuda'
@@ -1638,14 +1715,20 @@ def run_rehearsal(smi, image_feature_dim=None):
             cfg_file = os.path.join(tmp, 'image.yaml')
             with open(cfg_file, 'w') as f:
                 yaml.safe_dump(text, f)
-        tree, save = os.path.join(tmp, 'tree'), os.path.join(tmp, 'run')
+        work = os.path.join(tmp, 'rehearsal')
         t0 = time.perf_counter()
-        names = make_tree(tree, n_frames, N_POINTS, image_feature_dim=image_feature_dim)
-        hist = train_tool.main(['--cfg_file', cfg_file, '--data_dir', tree, '--batch_size', '1',
-                                '--epochs', '1', '--num_workers', '2', '--no_validate',
-                                '--log_iter_interval', '1', '--seed', '0', '--save_dir', save])
-        losses = [r[3] for r in hist['train']]
+        if image_feature_dim:
+            # the same tree with image_feature/ files: the tool's make_tree
+            # writes the lidar, label and pose files again, alike, and leaves
+            # the image features in place
+            make_tree(os.path.join(work, 'data'), n_frames, N_POINTS,
+                      image_feature_dim=image_feature_dim)
+        res = rehearsal.main(['--work_dir', work, '--frames', str(n_frames),
+                              '--n_points', str(N_POINTS), '--cfg_file', cfg_file])
+        tree, save, names, losses = res['data_dir'], res['save_dir'], res['names'], res['losses']
         assert len(losses) == n_frames and all(np.isfinite(losses)), losses
+        assert np.isfinite(res['miou']), res
+        secs = time.perf_counter() - t0
         resumed = ''
         if image_feature_dim:
             # resume as 7b, with the augmentation off: its draws come from the
@@ -1671,19 +1754,10 @@ def run_rehearsal(smi, image_feature_dim=None):
         held = [k for k in torch.load(latest_checkpoint(save), map_location='cpu',
                                       weights_only=True)['model'] if 'DeepFusionBlock_0' in k]
         assert len(held) == (6 if image_feature_dim else 0), held
-        res = eval_tool.main(['--cfg_file', cfg_file, '--data_dir', tree, '--save_dir', save,
-                              '--no_tta'])
-        assert np.isfinite(res['mIOU']) and int(res['hist'].sum()) == n_frames * N_POINTS
-        with mock.patch.dict(os.environ, {'OPENSEG3D_ALLOW_WOD_STUB': '1'}):
-            path = test_tool.main(['--cfg_file', cfg_file, '--data_dir', tree,
-                                   '--save_dir', save])
-        secs = time.perf_counter() - t0
-        method, frames = wod_stub.read_submission(path)
+        method, frames = wod_stub.read_submission(res['submission'])
         cfg = cfg_from_file(cfg_file)
         model, _ = build_segmentor(cfg, device)
-        model.load_state_dict(torch.load(latest_checkpoint(save), map_location=device,
-                                         weights_only=True)['model'])
-        forward = make_forward(model)
+        forward = make_forward(load_model(latest_checkpoint(save), model))
         dataset = WaymoDataset(cfg, tree, 'testing')
         assert dataset.filenames == names and len(frames) == len(names), (names, len(frames))
         labelled = 0
@@ -1698,13 +1772,13 @@ def run_rehearsal(smi, image_feature_dim=None):
             assert np.array_equal(lasers[0][1], want[0]) and np.array_equal(lasers[0][2], want[1])
             labelled += int((want[0][..., 1] > 0).sum() + (want[1][..., 1] > 0).sum())
         assert labelled == n_frames * N_POINTS, labelled     # a pixel per current point
-    print(f'(B) rehearsal{" with image features" if image_feature_dim else ""}: train '
-          f'{len(losses)} steps (losses {losses}){resumed}, checkpoint DeepFusion tensors '
-          f'{len(held)}, '
-          f'eval mIoU {res["mIOU"]:.4f}, test: {len(frames)} frames submitted ({method}), '
-          f'{labelled} range-image pixels labelled, each frame equal to the eval forward\'s '
-          f'argmax; {secs:.1f} s on {smi}', flush=True)
-    return dict(losses=losses, miou=res['mIOU'], frames=len(frames), seconds=secs)
+    print(f'(B) rehearsal{" with image features" if image_feature_dim else ""} through '
+          f'tools.rehearsal: train {len(losses)} steps (losses {losses}){resumed}, checkpoint '
+          f'DeepFusion tensors {len(held)}, eval mIoU {res["miou"]:.4f}, test: {len(frames)} '
+          f'frames submitted ({method}, {res["size"]} bytes), {labelled} range-image pixels '
+          f'labelled, each frame equal to the eval forward\'s argmax; the three tools '
+          f'{secs:.1f} s on {smi}', flush=True)
+    return dict(losses=losses, miou=res['miou'], frames=len(frames), seconds=secs)
 
 
 def run_device_tta(cfg, smi, per_forward):
@@ -2543,6 +2617,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # 1b. the host voxelizer: the C++ path, bit-equal to the reference files' frames
+    host_vox = check_host_voxelizer(smi)
+
     # 2. build, every source at once
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -2635,9 +2712,10 @@ def main() -> int:
     cli = run_cli(smi, expected)
     print(f'CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
 
-    # A. the port against the JAX package's eval step at full capacity
+    # A. the port against the JAX package's eval step and train step at
+    # full capacity
     t0 = time.perf_counter()
-    refs = check_references(smi)
+    refs, train_refs = check_references(smi)
     print(f'phase A: {time.perf_counter() - t0:.1f} s', flush=True)
 
     # C. multi-sweep (the 3-sweep reference frame) and cylinder
@@ -2682,6 +2760,9 @@ def main() -> int:
 
     # B. the rehearsal: train, eval and test through the port's tools, then
     # the same with image features
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()    # the tools' processes share the card with this one
     t0 = time.perf_counter()
     rehearsal = run_rehearsal(smi)
     run_rehearsal(smi, image_feature_dim=IMAGE_FEATURES['DIM_IMAGE_FEATURE'])
@@ -2722,6 +2803,11 @@ def main() -> int:
     print(f'learning run: loss {cli["learning"]["first_loss"]:.4f} -> '
           f'{cli["learning"]["last_loss"]:.4f}, validation mIoU {cli["learning"]["mious"]}, on '
           f'{smi}', flush=True)
+    print(f'host voxelizer: native {host_vox["native"]:.2f} ms, numpy {host_vox["numpy"]:.2f} '
+          f'ms a bench frame (host), on {smi}', flush=True)
+    for name, m in train_refs.items():
+        print(f'reference {name}: float32 train step, loss rel {m["loss_rel"]:.3g}, worst leaf '
+              f'{m["worst"]} at {m["worst_ratio"]:.3g} of its gate', flush=True)
     for name, res in refs.items():
         print(f'reference {name}: ' + '; '.join(
             f'{dt} agreement {m["agreement"]:.6f}, logits {m["logit_err"]:.3g}, loss rel '

@@ -11,7 +11,8 @@ that runs it on a GPU has none of them, and it imports nothing of the JAX
 package either. The pieces of that package it needs on the host have copies
 here, held equal to their originals by ``tests/test_torch_host.py``:
 ``config`` (PyYAML only to read a file), ``data.batch`` and
-``core.voxelizer`` (numpy).
+``core.voxelizer`` (numpy, and ``native``: the C++ voxelizer, built with g++
+at first use).
 
 Every Pallas kernel of the JAX package on the ported path has a hand-written
 CUDA counterpart under ``csrc/``; the wrapper launches it for CUDA tensors and

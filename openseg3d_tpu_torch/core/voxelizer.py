@@ -1,10 +1,12 @@
-"""Dynamic voxelization and the majority voxel labeler (host side, numpy).
+"""Dynamic voxelization and the majority voxel labeler (host side).
 
-A copy of the numpy path of ``openseg3d_tpu/core/voxelizer.py:23-157``: that
-module's package imports JAX (``openseg3d_tpu/core/__init__.py`` pulls in
-``core/metrics.py``), and the GPU machine has no JAX. The C++ voxelizer of the
-JAX package (``native/voxelizer.cpp``) is not ported yet; its numpy oracle is
-the only path here. ``tests/test_torch_host.py`` holds both copies equal.
+A copy of ``openseg3d_tpu/core/voxelizer.py:23-157``: that module's package
+imports JAX (``openseg3d_tpu/core/__init__.py`` pulls in ``core/metrics.py``),
+and the GPU machine has no JAX. As there, ``VoxelGenerator.generate`` runs the
+C++ voxelizer (``native/``, a copy of the JAX package's) whenever it builds,
+and the numpy path here otherwise; ``native.available()`` says which.
+``tests/test_torch_host.py`` and ``tests/test_torch_native.py`` hold both
+paths equal to the JAX package's.
 
 Every in-range point gets a voxel id, coords come back in zyx order, and voxel
 ids are in ascending linearized-key order (the sparse conv and window
@@ -14,6 +16,8 @@ partition rely on key-sorted slots). Out-of-range points get id -1.
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 
 class VoxelGenerator:
@@ -41,7 +45,11 @@ class VoxelGenerator:
 
     def generate(self, points: np.ndarray):
         """points [N, >=3] (x,y,z,...) -> (voxel_coords [M,3] int32 zyx,
-        point_voxel_ids [N] int32, -1 = out of range)."""
+        point_voxel_ids [N] int32, -1 = out of range), through the C++
+        voxelizer when it builds (the production path), else numpy."""
+        if native.available():
+            return native.native_points_to_voxel(points, self._voxel_size,
+                                                 self._point_cloud_range)
         return points_to_voxel(points, self._voxel_size, self._point_cloud_range)
 
 

@@ -80,10 +80,25 @@ def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generat
     return gen
 
 
-def compute_loss(result, batch, criterion, spec: ModelSpec, aux_loss_weight: float):
+def _aux_labels(result, batch, spec: ModelSpec):
+    """The stage-4 voxels' labels: each takes its nearest full-resolution
+    voxel's label (B3 on the card)."""
+    with torch.no_grad():
+        centers = get_voxel_centers(result['voxel_coords'], 1.0, spec.voxel_size,
+                                    spec.point_cloud_range)
+        aux_centers = get_voxel_centers(result['aux_voxel_coords'], 8.0, spec.voxel_size,
+                                        spec.point_cloud_range)
+        return nearest_label_transfer(centers, batch['voxel_labels'], result['voxel_mask'],
+                                      aux_centers, result['aux_voxel_mask'])
+
+
+def compute_loss(result, batch, criterion, spec: ModelSpec, aux_loss_weight: float,
+                 aux_labels=None):
     """Point losses + voxel losses + aux_loss_weight x aux-voxel losses, the
     aux labels carried from the full-resolution voxels to the stage-4 voxels
-    by the nearest voxel centre (``engine.py:67-96``), outside the gradient.
+    by the nearest voxel centre (``engine.py:67-96``), outside the gradient;
+    or `aux_labels` ([B, A], this rank's) where the caller gives them (a
+    reference run's own labels, ``parity.check_train_reference``).
 
     With more than one rank, the aux labels are found on each rank's own
     samples, then every rank's logits and labels are gathered in rank order
@@ -91,14 +106,8 @@ def compute_loss(result, batch, criterion, spec: ModelSpec, aux_loss_weight: flo
     global rows: the loss is the JAX package's loss of the global batch, the
     same on every rank."""
     nc = spec.num_classes
-    with torch.no_grad():
-        centers = get_voxel_centers(result['voxel_coords'], 1.0, spec.voxel_size,
-                                    spec.point_cloud_range)
-        aux_centers = get_voxel_centers(result['aux_voxel_coords'], 8.0, spec.voxel_size,
-                                        spec.point_cloud_range)
-        aux_labels = nearest_label_transfer(centers, batch['voxel_labels'],
-                                            result['voxel_mask'], aux_centers,
-                                            result['aux_voxel_mask'])
+    if aux_labels is None:
+        aux_labels = _aux_labels(result, batch, spec)
     loss = 0.0
     for out, labels, scale in ((result['point_out'], batch['point_labels'], 1.0),
                                (result['voxel_out'], batch['voxel_labels'], 1.0),

@@ -17,6 +17,17 @@ and LayerNorm scales near 1, small biases and drawn BatchNorm statistics
 (mean small, var in [0.5, 2]) so that eval-mode BatchNorm is exercised.
 Drawing with numpy keeps the weights independent of the torch version.
 
+The train reference (``TRAIN_REFERENCES``) holds the JAX package's float32
+train step instead: ``jax.value_and_grad`` of its loss with the BatchNorm
+statistics mutable, dropout and drop path off, no optimizer. Its aux labels
+(JAX's 1-NN on JAX's own voxel centres) are stored and fed to the port, so
+that ties between equidistant centres cannot move the loss. Per gradient and
+BatchNorm leaf it stores the largest magnitude, the L2 norm, the values at up
+to SAMPLED_PER_LEAF seeded flat indices, and JAX's own movement: the largest
+change of the leaf under two draws of 1e-7 relative noise on the weights,
+over its largest magnitude. ``check_train_reference`` runs the port's step
+and holds it to the file.
+
 Frames (``reference_frame``):
   * ``one_sweep``: the benchmark frame, ``make_waymo_like_cloud`` from
     RandomState(0), 163840 points, random labels (``chip_smoke.py``'s), and
@@ -52,7 +63,9 @@ from .config import cfg_from_file
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'parity_data')
 
-# name -> (config file under configs/, overrides, frame)
+# name -> (config file under configs/, overrides, frame); the names in
+# TRAIN_REFERENCES hold a train step (``check_train_reference``), the others
+# an eval step (``check_reference``)
 REFERENCES = {
     'waymo_one_sweep': ('waymo_one_sweep.yaml', {}, 'one_sweep'),
     'waymo_multi_sweeps': ('waymo_multi_sweeps.yaml', {}, 'multi_sweep'),
@@ -60,7 +73,11 @@ REFERENCES = {
                               'one_sweep'),
     'waymo_one_sweep_deepfusion': ('waymo_one_sweep.yaml', {'DATASET': {
         'USE_IMAGE_FEATURE': True, 'DIM_IMAGE_FEATURE': 28}}, 'one_sweep'),
+    'waymo_one_sweep_train': ('waymo_one_sweep.yaml', {'MODEL': {'DROP_PATH_RATE': 0.0}},
+                              'one_sweep'),
 }
+TRAIN_REFERENCES = ('waymo_one_sweep_train',)
+EVAL_REFERENCES = tuple(n for n in sorted(REFERENCES) if n not in TRAIN_REFERENCES)
 WEIGHT_SEED = 0
 FRAME_SEED = 0
 FRAME_POINTS = {'one_sweep': 163840, 'multi_sweep': 60074}
@@ -72,6 +89,13 @@ FLOAT32_AGREEMENT = 0.999
 LOSS_RTOL = 1e-3
 BF16_AGREEMENT_SLACK = 0.005  # below JAX bf16's own agreement with JAX float32
 BF16_LOGIT_FACTOR = 2.0       # x JAX bf16's own sampled-logit error
+# the train reference (float32): the loss relative; each gradient leaf within
+# (TRAIN_TOL + TRAIN_MOVEMENT_FACTOR x JAX's own movement) x (1 + its largest
+# magnitude); the BatchNorm statistics within TRAIN_TOL x (1 + their largest)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_TOL = 1e-4
+TRAIN_MOVEMENT_FACTOR = 2.0
+SAMPLED_PER_LEAF = 64
 
 
 def reference_path(name: str) -> str:
@@ -372,4 +396,154 @@ def compare_with_reference(outputs: dict, batch: dict, ref: dict,
                           logit_err=BF16_LOGIT_FACTOR * own_err)
         assert m['agreement'] >= own_agree - BF16_AGREEMENT_SLACK, m
         assert m['logit_err'] <= BF16_LOGIT_FACTOR * own_err, m
+    return m
+
+
+# --- the train reference -----------------------------------------------------
+
+def flat_leaves(tree: dict, prefix: tuple = ()) -> dict:
+    """{'a/b/leaf': numpy array} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, prefix + (k,)))
+        else:
+            out['/'.join(prefix + (k,))] = np.asarray(v)
+    return out
+
+
+def leaf_summary(leaves: dict, prefix: str, seed: int = 0, movement: dict | None = None) -> dict:
+    """The flat arrays of a train record for one tree ({path: array}):
+    `prefix`_paths, _max (largest magnitude), _norm (L2, float64), _index
+    ([L, SAMPLED_PER_LEAF] flat indices from RandomState(seed), -1 padded),
+    _values (float32 there), and _movement when `movement` ({path: relative
+    movement}) is given."""
+    rng = np.random.RandomState(seed)
+    paths = sorted(leaves)
+    index = np.full((len(paths), SAMPLED_PER_LEAF), -1, np.int64)
+    values = np.zeros((len(paths), SAMPLED_PER_LEAF), np.float32)
+    for i, p in enumerate(paths):
+        flat = np.asarray(leaves[p], np.float32).reshape(-1)
+        k = min(SAMPLED_PER_LEAF, flat.size)
+        pick = np.sort(rng.choice(flat.size, k, replace=False))
+        index[i, :k], values[i, :k] = pick, flat[pick]
+    out = {f'{prefix}_paths': np.asarray(paths),
+           f'{prefix}_max': np.asarray([float(np.abs(leaves[p]).max()) for p in paths]),
+           f'{prefix}_norm': np.asarray([float(np.linalg.norm(np.asarray(leaves[p], np.float64)))
+                                        for p in paths]),
+           f'{prefix}_index': index, f'{prefix}_values': values}
+    if movement is not None:
+        out[f'{prefix}_movement'] = np.asarray([float(movement[p]) for p in paths])
+    return out
+
+
+def perturbed(tree: dict, rng, rel: float = 1e-7) -> dict:
+    """A copy of a nested dict of float32 arrays, each leaf x (1 + rel x a
+    standard normal draw from `rng`), leaves in sorted key order."""
+    return {k: perturbed(tree[k], rng, rel) if isinstance(tree[k], dict)
+            else (tree[k] * (1 + rel * rng.standard_normal(np.shape(tree[k])))).astype(np.float32)
+            for k in sorted(tree)}
+
+
+def movement(base: dict, moved: list) -> dict:
+    """{path: the largest |moved - base| over the draws / max |base|}."""
+    return {p: max(float(np.abs(np.asarray(m[p], np.float64) - base[p]).max()) for m in moved)
+            / max(float(np.abs(base[p]).max()), 1e-30) for p in base}
+
+
+def no_dropout(model: torch.nn.Module) -> None:
+    """Every dropout rate of the port's model set to 0 (attention, MLP,
+    head, OCR and DeepFusion dropout; drop path comes from the config)."""
+    from .models.deep_fusion import DeepFusionBlock
+    from .models.ocr import OCRLayer
+    from .models.segmentors.common import SegmentorHead
+    from .models.swformer import MLP, WindowAttention
+    for m in model.modules():
+        if isinstance(m, WindowAttention):
+            m.attn_drop = 0.0
+        elif isinstance(m, (MLP, SegmentorHead, OCRLayer)):
+            m.drop = 0.0
+        elif isinstance(m, DeepFusionBlock):
+            m.attn_pdrop = 0.0
+
+
+def port_train_step(cfg, params, stats, batch, aux_labels, device='cuda') -> dict:
+    """The port's train step without the optimizer: the forward in training
+    mode with dropout off, ``engine.compute_loss`` on the given aux labels
+    ([B, A]) and the backward. Returns {'loss', 'grads' and 'stats' (flat
+    {path: numpy}: the gradients, the BatchNorm statistics after the
+    step)}."""
+    from .data.batch import to_device
+    from .engine import build_segmentor, compute_loss, step_generator
+    from .models.losses import build_criterion
+    from .weights import load_flax_variables, to_flax_variables
+    model, spec = build_segmentor(cfg, device=device)
+    load_flax_variables(model, params, stats)
+    no_dropout(model)
+    model.train()
+    tb = to_device(batch, device)
+    out = model(tb, rng=step_generator(0, 0, device))
+    loss = compute_loss(out, tb, build_criterion(cfg), spec, float(cfg.MODEL.AUX_LOSS_WEIGHT),
+                        aux_labels=torch.as_tensor(np.asarray(aux_labels, np.int64),
+                                                   device=device))
+    loss.backward()
+    grads, _ = to_flax_variables(model, grads=True)
+    _, new_stats = to_flax_variables(model)
+    return {'loss': float(loss.detach()), 'grads': flat_leaves(grads),
+            'stats': flat_leaves(new_stats)}
+
+
+def compare_with_train_reference(result: dict, ref: dict) -> dict:
+    """A ``port_train_step`` result against a train record: the loss within
+    TRAIN_LOSS_RTOL relative; each gradient leaf's sampled values and L2
+    norm within (TRAIN_TOL + TRAIN_MOVEMENT_FACTOR x its JAX movement) x (1
+    + its largest magnitude); each BatchNorm statistic's within TRAIN_TOL x
+    (1 + its largest). Raises AssertionError naming the leaves past their
+    gate; returns the numbers: the loss, the worst leaf (error over gate)
+    and the leaves past half their gate."""
+    loss_rel = abs(result['loss'] - float(ref['loss'])) / abs(float(ref['loss']))
+    ratios = {}
+    for prefix, key in (('grad', 'grads'), ('stats', 'stats')):
+        got = result[key]
+        paths = [str(p) for p in ref[f'{prefix}_paths']]
+        assert sorted(got) == paths, sorted(set(got) ^ set(paths))[:5]
+        for i, p in enumerate(paths):
+            big = float(ref[f'{prefix}_max'][i])
+            move = float(ref[f'{prefix}_movement'][i]) if prefix == 'grad' else 0.0
+            gate = (TRAIN_TOL + TRAIN_MOVEMENT_FACTOR * move) * (1.0 + big)
+            flat = np.asarray(got[p], np.float32).reshape(-1)
+            idx = ref[f'{prefix}_index'][i]
+            idx = idx[idx >= 0]
+            err = max(float(np.abs(flat[idx] - ref[f'{prefix}_values'][i][:idx.size]).max()),
+                      abs(float(np.linalg.norm(flat.astype(np.float64)))
+                          - float(ref[f'{prefix}_norm'][i])))
+            ratios[f'{key}/{p}'] = (err / gate, err, gate)
+    worst = max(ratios.items(), key=lambda kv: kv[1][0])
+    m = {'loss': result['loss'], 'ref_loss': float(ref['loss']), 'loss_rel': loss_rel,
+         'leaves': len(ratios), 'worst': worst[0], 'worst_ratio': worst[1][0],
+         'worst_err': worst[1][1], 'worst_gate': worst[1][2],
+         'over_half': {k: round(v[0], 3) for k, v in ratios.items() if v[0] > 0.5}}
+    over = {k: v for k, v in ratios.items() if v[0] > 1.0}
+    assert loss_rel <= TRAIN_LOSS_RTOL, m
+    assert not over, (over, m)
+    return m
+
+
+def check_train_reference(name: str, device='cuda') -> dict:
+    """The port's float32 train step on `device` against train reference
+    `name` (``compare_with_train_reference``'s numbers, plus the seconds of
+    the step). A reference whose frame has an over-full window is refused."""
+    import time
+    ref = load_reference(name)
+    assert str(ref['kind']) == 'train', name
+    overfull = [tuple(int(x) for x in r) for r in ref['overfull'] if r[2]]
+    assert not overfull, f'over-full windows (stage, level, count): {overfull}'
+    cfg = reference_config(name)
+    batch = reference_frame(cfg, REFERENCES[name][2])
+    params, stats = reference_weights(cfg)
+    t0 = time.perf_counter()
+    res = port_train_step(cfg, params, stats, batch, ref['aux_labels'], device)
+    seconds = time.perf_counter() - t0
+    m = compare_with_train_reference(res, ref)
+    m['seconds'] = seconds
     return m

@@ -5,7 +5,8 @@ on one GPU (or on the CPU with ``--device cpu``).
         --data_dir data/waymo --save_dir runs/waymo_torch
 
 Counterpart of ``tools/test.py``, with its flags plus ``--device`` (default
-``cuda``): the newest ``epoch_N.pt`` of the save directory, every frame of
+``cuda``): the newest checkpoint of the save directory (``epoch_N.pt``, or a
+JAX run's ``epoch_N/``: ``utils/checkpoint.load_model``), every frame of
 the testing frame list through ``engine.make_forward`` one at a time, the
 argmax over the frame's current points (``point_mask & cur_point_mask``: a
 multi-sweep frame's history points are never submitted) scattered into the
@@ -20,8 +21,6 @@ from __future__ import annotations
 
 import argparse
 import os
-
-import torch
 
 from .train import resolve_device
 
@@ -62,7 +61,7 @@ def _test(args, device, logger) -> str:
     from ..data.batch import collate_padded, to_device
     from ..data.waymo_dataset import WaymoDataset
     from ..engine import build_segmentor, make_forward
-    from ..utils.checkpoint import latest_checkpoint
+    from ..utils.checkpoint import latest_checkpoint, load_model
     from ..utils.submission import construct_seg_frame, write_submission_file
 
     cfg = cfg_from_file(args.cfg_file)
@@ -72,7 +71,7 @@ def _test(args, device, logger) -> str:
     if latest is None:
         raise FileNotFoundError(f'no checkpoint found in {args.save_dir}')
     model, _ = build_segmentor(cfg, device)
-    model.load_state_dict(torch.load(latest, map_location=device, weights_only=True)['model'])
+    load_model(latest, model)
     logger.info('loaded %s', latest)
     forward = make_forward(model)
 

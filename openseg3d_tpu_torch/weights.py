@@ -75,6 +75,16 @@ def _targets(module: nn.Module, prefix: tuple, pick: Callable, out: list):
         _targets(child, prefix + (name,), pick, out)
 
 
+def parameter_leaves(model: nn.Module) -> list:
+    """(flax leaf path, parameter, fn) for every parameter of `model`: fn
+    maps the flax leaf (or any tree leaf of the same layout, such as an
+    optimizer moment) to the parameter's layout, transposing Linear kernels
+    and slicing ``ModuleList`` layers."""
+    targets: list = []
+    _targets(model, (), lambda a: a, targets)
+    return [(path, t, fn) for path, t, fn in targets if isinstance(t, nn.Parameter)]
+
+
 def load_flax_variables(model: nn.Module, params: dict, batch_stats: dict) -> None:
     """Copy the JAX package's variables into `model` in place."""
     leaves = _flatten(params)

@@ -37,6 +37,7 @@ from tools import verify_capacities as jax_verify
 from openseg3d_tpu_torch import bench
 from openseg3d_tpu_torch.config import cfg_from_file
 from openseg3d_tpu_torch.core.voxelizer import VoxelGenerator
+from openseg3d_tpu_torch import native as port_native
 from openseg3d_tpu_torch.data.batch import to_device
 from openseg3d_tpu_torch.data.synthetic import make_waymo_like_cloud
 from openseg3d_tpu_torch.engine import build_segmentor
@@ -64,9 +65,10 @@ def two_threads():
 
 @pytest.fixture(autouse=True)
 def jax_host_paths(monkeypatch):
-    """The JAX tools on their numpy voxelizer (its C++ one rounds boundary
-    points another way), with no change to this process's JAX settings."""
-    monkeypatch.setattr(native, 'available', lambda: False)
+    """The JAX tools with no change to this process's JAX settings; both
+    packages voxelize on the same path (their C++ voxelizer where it
+    builds: the port's is a copy of the JAX package's)."""
+    assert native.available() == port_native.available()
     monkeypatch.setattr(jax.config, 'update', lambda *args: None)
     monkeypatch.setenv('JAX_COMPILATION_CACHE_DIR', os.path.join(REPO, '.jax_test_cache'))
 
@@ -121,6 +123,14 @@ def test_bench_batch_equals_the_jax_bench(monkeypatch, cfg_file, extra):
     assert n_voxels == [int(n) for n in want['num_voxels']]
     if 'multi' in cfg_file:
         assert want['cur_point_mask'].sum() < want['point_mask'].sum()
+
+
+def test_bench_batch_equals_the_jax_bench_on_numpy(monkeypatch):
+    """The same with both packages on their numpy voxelizer."""
+    monkeypatch.setattr(native, 'available', lambda: False)
+    monkeypatch.setattr(port_native, 'available', lambda: False)
+    test_bench_batch_equals_the_jax_bench(monkeypatch, 'waymo_one_sweep.yaml',
+                                          ['--batch_size', '2'])
 
 
 @pytest.mark.parametrize('mode', ['infer', 'train_fwd', 'train'])

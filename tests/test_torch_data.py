@@ -2,11 +2,12 @@
 augmentations, PolarMix, instance paste, the synthetic and Waymo datasets,
 the loader's index order and the TTA variants. Both sides are numpy code that
 draws from the global ``np.random`` in the same order, so under one seed every
-array is exactly equal. The JAX package voxelizes with its C++ extension when
-it builds; that extension multiplies by the reciprocal of the voxel size where
-the numpy path divides, so a point on a voxel boundary can land one voxel
-apart. The port copies the numpy path, and these tests pin the JAX package to
-it too."""
+array is exactly equal. Both packages voxelize with their C++ extension when
+it builds (the port's is a copy of the JAX package's source), which multiplies
+by the reciprocal of the voxel size where the numpy path divides, so a point
+on a voxel boundary can land one voxel apart from the numpy path: each side
+runs the same path, the C++ one (each package's production path) and, in the
+``_on_numpy`` cases, both on numpy."""
 
 import os
 
@@ -44,8 +45,19 @@ CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 
 @pytest.fixture(autouse=True)
+def same_voxelizer():
+    """Both packages take the same voxelization path."""
+    from openseg3d_tpu import native as jax_native
+    from openseg3d_tpu_torch import native
+    assert native.available() == jax_native.available()
+
+
+@pytest.fixture
 def numpy_voxelizer(monkeypatch):
-    from openseg3d_tpu import native
+    """Both packages on their numpy voxelizer."""
+    from openseg3d_tpu import native as jax_native
+    from openseg3d_tpu_torch import native
+    monkeypatch.setattr(jax_native, 'available', lambda: False)
     monkeypatch.setattr(native, 'available', lambda: False)
 
 
@@ -177,6 +189,11 @@ def test_synthetic_dataset_equal_jax(cylinder):
             _same(mine.load_padded(i), ref.load_padded(i), f'{mode} {i}')
 
 
+@pytest.mark.parametrize('cylinder', [False, True])
+def test_synthetic_dataset_equal_jax_on_numpy(numpy_voxelizer, cylinder):
+    test_synthetic_dataset_equal_jax(cylinder)
+
+
 @pytest.fixture(scope='module')
 def waymo_tree(tmp_path_factory):
     root = tmp_path_factory.mktemp('waymo')
@@ -208,6 +225,11 @@ def test_waymo_dataset_equal_jax(waymo_tree, mode):
         _same(got, _seeded(11 + i, ref.load_padded, i), f'{mode} {i}')
         if mode == 'training':                # instance paste and PolarMix grew the cloud
             assert got[0]['num_points'] != 4096
+
+
+@pytest.mark.parametrize('mode', ['training', 'validation'])
+def test_waymo_dataset_equal_jax_on_numpy(numpy_voxelizer, waymo_tree, mode):
+    test_waymo_dataset_equal_jax(waymo_tree, mode)
 
 
 class _IndexDataset:

@@ -19,6 +19,18 @@ loss gate, see PERF.md section 6):
 
     python tests/test_torch_fullsize.py --ties [name ...]
 
+The train reference (``parity.TRAIN_REFERENCES``) holds the JAX package's
+float32 train step at full capacity instead (``run_jax_train_step``: loss,
+gradients and BatchNorm statistics, with JAX's own movement under 1e-7
+relative weight noise); it is written the same way,
+
+    python tests/test_torch_fullsize.py --write waymo_one_sweep_train
+
+and only the card checks it at full size (``parity.check_train_reference``
+in ``chip_smoke.py`` phase A): the port's plain attention on the CPU keeps
+every layer's [N, 8, T, T] for the backward. Here a tiny train record holds
+the port's CPU step to the same gates. It covers float32 only.
+
 ``chip_smoke.py`` holds the port on the card to them. The tests here check
 the files' provenance (the weights and frame rebuilt from their seeds have
 the recorded digests) and run the writer and ``compare_with_reference`` on
@@ -43,6 +55,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.dirname(HERE), HERE]
 
 from openseg3d_tpu_torch import parity  # noqa: E402
+from openseg3d_tpu_torch.models.segmentors.common import ModelSpec  # noqa: E402
 
 MAX_FILE_BYTES = 1 << 20
 
@@ -151,6 +164,85 @@ def build_record(port_cfgs, jax_cfgs, batch, params, stats, provenance, port_rou
     return rec, own
 
 
+NOISE = 1e-7          # relative weight noise of JAX's own movement
+NOISE_DRAWS = 2
+
+
+def run_jax_train_step(jcfg, params, stats, batch, draws=NOISE_DRAWS):
+    """The JAX package's float32 train step without the optimizer:
+    ``jax.value_and_grad`` of ``engine.compute_loss`` with the BatchNorm
+    statistics mutable (``engine.make_train_step``'s loss_fn), flax
+    ``nn.Dropout`` patched to the identity (drop path is the config's), the
+    aux labels from the 1-NN kernel of its TPU path on its own voxel centres
+    (``pallas_label_transfer``). The jitted step runs again on `draws` copies
+    of the weights with NOISE relative noise (RandomState(100 + draw)),
+    without a new compile. Returns {'loss', 'aux_labels', 'grads', 'stats'
+    (flat {path: numpy}), 'grad_movement', 'stats_movement' ({path:
+    relative movement})}."""
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+    from openseg3d_tpu import engine
+    from openseg3d_tpu.models.losses import build_criterion
+    model, spec = engine.build_segmentor(jcfg)
+    criterion = build_criterion(jcfg)
+    aux_w = float(jcfg.MODEL.AUX_LOSS_WEIGHT)
+    traced = {}
+
+    def label_transfer(*args):
+        traced['labels'] = pallas_label_transfer(*args)
+        return traced['labels']
+
+    @jax.jit
+    def step(p, s, b):
+        def loss_fn(p):
+            out, mut = model.apply({'params': p, 'batch_stats': s}, b, train=True,
+                                   mutable=['batch_stats'],
+                                   rngs={'dropout': jax.random.PRNGKey(0)})
+            loss = engine.compute_loss(out, b, criterion, spec, aux_w)
+            return loss, (mut['batch_stats'], traced['labels'])
+        (loss, (new_stats, labels)), g = jax.value_and_grad(loss_fn, has_aux=True)(p)
+        return loss, g, new_stats, labels
+
+    jb = {k: jnp.asarray(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    with mock.patch.object(fnn.Dropout, '__call__', lambda self, x, *a, **k: x), \
+            mock.patch.object(engine, 'nearest_label_transfer', label_transfer):
+        loss, g, new_stats, labels = jax.device_get(step(params, stats, jb))
+        grads, st = parity.flat_leaves(g), parity.flat_leaves(new_stats)
+        moved = [jax.device_get(step(parity.perturbed(params, np.random.RandomState(100 + d),
+                                                      NOISE), stats, jb))
+                 for d in range(draws)]
+    return {'loss': float(loss), 'aux_labels': np.asarray(labels), 'grads': grads,
+            'stats': st,
+            'grad_movement': parity.movement(grads, [parity.flat_leaves(m[1]) for m in moved]),
+            'stats_movement': parity.movement(st, [parity.flat_leaves(m[2]) for m in moved])}
+
+
+def build_train_record(port_cfg, jax_cfg, batch, params, stats, provenance):
+    """The train record of one configuration (float32)."""
+    counts = parity.overfull_windows(port_cfg, batch)
+    over = [c for c in counts if c[2]]
+    assert not over, f'over-full windows (stage, level, count): {over}'
+    t0 = time.time()
+    out = run_jax_train_step(jax_cfg, params, stats, batch)
+    seconds = time.time() - t0
+    labels = out['aux_labels']
+    assert labels.min() >= 0 and labels.max() <= 255
+    rec = dict(kind=np.asarray('train'), loss=np.float64(out['loss']),
+               aux_labels=labels.astype(np.uint8),
+               **parity.leaf_summary(out['grads'], 'grad', 0, out['grad_movement']),
+               **parity.leaf_summary(out['stats'], 'stats', 1, out['stats_movement']),
+               overfull=np.asarray(counts, np.int32).reshape(-1, 3),
+               live_voxels=np.int64(batch['voxel_mask'].sum()),
+               write_seconds=np.float64(seconds),
+               weight_paths=np.asarray(list(parity.tree_digests(params, stats))),
+               weight_digests=np.asarray(list(parity.tree_digests(params, stats).values())),
+               batch_keys=np.asarray(list(parity.batch_digests(batch))),
+               batch_digests=np.asarray(list(parity.batch_digests(batch).values())),
+               **{k: np.asarray(v) for k, v in provenance.items()})
+    return rec
+
+
 def jax_config(name, dtype):
     """The JAX package's configuration of reference `name` at `dtype`."""
     from openseg3d_tpu.config import cfg_from_file
@@ -160,7 +252,29 @@ def jax_config(name, dtype):
     return cfg_from_file(os.path.join(parity.REPO, 'configs', cfg_file), overrides=ov)
 
 
+def write_train_reference(name):
+    cfg_file, overrides, frame = parity.REFERENCES[name]
+    port_cfg = parity.reference_config(name)
+    batch = parity.reference_frame(port_cfg, frame)
+    params, stats = parity.reference_weights(port_cfg)
+    rec = build_train_record(port_cfg, jax_config(name, 'float32'), batch, params, stats, dict(
+        name=name, config=cfg_file, overrides=repr(overrides), weight_seed=parity.WEIGHT_SEED,
+        frame=frame, frame_seed=parity.FRAME_SEED))
+    os.makedirs(parity.DATA_DIR, exist_ok=True)
+    np.savez_compressed(parity.reference_path(name), **rec)
+    size = os.path.getsize(parity.reference_path(name))
+    move = rec['grad_movement']
+    print(f'{name}: {float(rec["write_seconds"]):.0f} s, {size} bytes; loss '
+          f'{float(rec["loss"]):.7g}; {len(move)} gradient leaves, JAX\'s own movement median '
+          f'{float(np.median(move)):.3g}, largest {float(move.max()):.3g} '
+          f'({rec["grad_paths"][int(move.argmax())]}); over-full windows '
+          f'{int(rec["overfull"][:, 2].sum())}', flush=True)
+    assert size <= MAX_FILE_BYTES, size
+
+
 def write_reference(name):
+    if name in parity.TRAIN_REFERENCES:
+        return write_train_reference(name)
     cfg_file, overrides, frame = parity.REFERENCES[name]
     port_cfgs = {dt: parity.reference_config(name, dt) for dt in ('float32', 'bfloat16')}
     jax_cfgs = {dt: jax_config(name, dt) for dt in port_cfgs}
@@ -202,7 +316,10 @@ def tie_check(name):
 
 def check_reference(name):
     t0 = time.time()
-    m = parity.check_reference(name, ('float32',), 'cpu')['float32']
+    if name in parity.TRAIN_REFERENCES:
+        m = parity.check_train_reference(name, 'cpu')
+    else:
+        m = parity.check_reference(name, ('float32',), 'cpu')['float32']
     print(f'{name} (float32, the port on the CPU, {time.time() - t0:.0f} s): {m}', flush=True)
     return m
 
@@ -221,16 +338,27 @@ def test_reference_provenance(name):
     assert str(ref['overrides']) == repr(overrides)
     cfg = parity.reference_config(name)
     params, stats = parity.reference_weights(cfg, int(ref['weight_seed']))
-    got = parity.tree_digests(params, stats)
+    got = got_weights = parity.tree_digests(params, stats)
     assert list(got) == list(ref['weight_paths'])
     assert list(got.values()) == list(ref['weight_digests'])
     batch = parity.reference_frame(cfg, frame, int(ref['frame_seed']))
     got = parity.batch_digests(batch)
     assert list(got) == list(ref['batch_keys'])
     assert list(got.values()) == list(ref['batch_digests'])
+    assert int(ref['live_voxels']) == int(batch['voxel_mask'].sum())
+    if name in parity.TRAIN_REFERENCES:
+        # a train record: one gradient leaf per parameter, one statistic per
+        # BatchNorm buffer, the aux labels of every stage-4 slot
+        assert str(ref['kind']) == 'train' and np.isfinite(float(ref['loss']))
+        for prefix, coll in (('grad', 'params/'), ('stats', 'batch_stats/')):
+            assert list(ref[f'{prefix}_paths']) == sorted(
+                p[len(coll):] for p in got_weights if p.startswith(coll))
+        aux_capacity = ModelSpec.from_config(cfg).capacities[-1]
+        assert ref['aux_labels'].shape == (1, aux_capacity)
+        assert (ref['grad_movement'] >= 0).all() and np.isfinite(ref['grad_norm']).all()
+        return
     valid = parity.valid_points(batch)
     assert ref['argmax'].shape == ref['argmax_bfloat16'].shape == (int(valid.sum()),)
-    assert int(ref['live_voxels']) == int(batch['voxel_mask'].sum())
     assert int(ref['hist'].sum()) == int(valid.sum())
 
 
@@ -267,7 +395,12 @@ def tiny_record():
     rec, _ = build_record(port_cfgs, jax_cfgs, batch, params, stats, {'name': 'tiny'},
                           port_rounding=True)
     rec['loss_jax_rounding'] = run_jax_eval_step(jax_cfgs['float32'], params, stats, batch)['loss']
-    return port_cfgs, batch, params, stats, rec
+    # the train record of the same model with drop path off, on JAX's own
+    # voxel centres (its aux labels are stored and fed to the port)
+    train_port, train_jax = tiny_cfgs({'MODEL': {**TINY['MODEL'], 'DROP_PATH_RATE': 0.0}})
+    train = build_train_record(train_port['float32'], train_jax['float32'], batch, params, stats,
+                               {'name': 'tiny_train'})
+    return port_cfgs, batch, params, stats, rec, (train_port['float32'], train)
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
@@ -276,7 +409,7 @@ def test_compare_with_reference_on_a_tiny_config(tiny_record, dtype):
     record; perturbing its point logits at one sampled row by 1% of the
     largest logit fails the float32 gate, and flipping argmaxes fails the
     agreement gate."""
-    port_cfgs, batch, params, stats, rec = tiny_record
+    port_cfgs, batch, params, stats, rec, _ = tiny_record
     assert not rec['overfull'][:, 2].any()
     out = parity.port_outputs(port_cfgs[dtype], params, stats, batch, 'cpu')
     m = parity.compare_with_reference(out, batch, rec, dtype)
@@ -300,6 +433,44 @@ def test_compare_with_reference_on_a_tiny_config(tiny_record, dtype):
         parity.compare_with_reference(bad, batch, rec, dtype)
 
 
+def test_check_train_reference_on_a_tiny_config(tiny_record):
+    """The port's CPU float32 train step (dropout off, the record's aux
+    labels) passes the train gates against the writer's train record: the
+    loss within 1e-4 relative, each gradient leaf within (1e-4 + 2 x JAX's
+    own movement) x (1 + its largest magnitude), each BatchNorm statistic
+    within 1e-4 x (1 + its largest). A gradient value moved past its gate,
+    a BatchNorm statistic moved by 1e-3 of its scale, or the loss moved by
+    1e-3 fails them."""
+    _, batch, params, stats, _, (cfg, rec) = tiny_record
+    assert not rec['overfull'][:, 2].any() and (rec['aux_labels'] != 255).any()
+    res = parity.port_train_step(cfg, params, stats, batch, rec['aux_labels'], 'cpu')
+    m = parity.compare_with_train_reference(res, rec)
+    print(m)
+    assert m['leaves'] == len(rec['grad_paths']) + len(rec['stats_paths'])
+    move = dict(zip(rec['grad_paths'], rec['grad_movement']))
+    print(f'JAX\'s own movement: median {np.median(rec["grad_movement"]):.3g}, largest '
+          f'{max(move.values()):.3g} ({max(move, key=move.get)})')
+
+    i = int(np.argmax(rec['grad_max']))
+    path, big = str(rec['grad_paths'][i]), float(rec['grad_max'][i])
+    gate = (parity.TRAIN_TOL + parity.TRAIN_MOVEMENT_FACTOR * float(rec['grad_movement'][i])) \
+        * (1 + big)
+    bad = dict(res, grads=dict(res['grads']))
+    g = bad['grads'][path] = res['grads'][path].copy()
+    g.reshape(-1)[int(rec['grad_index'][i][0])] += 1.5 * gate
+    with pytest.raises(AssertionError, match='grads/'):
+        parity.compare_with_train_reference(bad, rec)
+    j = int(np.argmax(rec['stats_max']))
+    spath = str(rec['stats_paths'][j])
+    bad = dict(res, stats=dict(res['stats']))
+    v = bad['stats'][spath] = res['stats'][spath].copy()
+    v.reshape(-1)[int(rec['stats_index'][j][0])] += 1e-3 * (1 + float(rec['stats_max'][j]))
+    with pytest.raises(AssertionError, match='stats/'):
+        parity.compare_with_train_reference(bad, rec)
+    with pytest.raises(AssertionError):
+        parity.compare_with_train_reference(dict(res, loss=res['loss'] * (1 + 1e-3)), rec)
+
+
 def test_a_frame_with_an_over_full_window_is_refused(tiny_record):
     """A first-stage token cap of 12 makes one window of the tiny batch
     over-full: ``overfull_windows`` counts it where the JAX partition drops
@@ -312,7 +483,7 @@ def test_a_frame_with_an_over_full_window_is_refused(tiny_record):
     from openseg3d_tpu_torch.models.backbones.point_transformer import stage_level_specs
     from openseg3d_tpu_torch.models.segmentors.common import ModelSpec
     from openseg3d_tpu_torch.ops.window import batched_window_partition
-    port_cfgs, batch, params, stats, rec = tiny_record
+    port_cfgs, batch, params, stats, rec, _ = tiny_record
     d = default_config()
     capped, _ = tiny_cfgs({'MODEL': {**TINY['MODEL'], 'BATCHING_INFO':
                                      [_ladder([4, 8], top=12)] + d.MODEL.BATCHING_INFO[1:]},
@@ -368,6 +539,10 @@ def main(argv=None):
     ap.add_argument('names', nargs='*', default=sorted(parity.REFERENCES))
     args = ap.parse_args(argv)
     os.environ.setdefault('JAX_PLATFORMS', 'cpu')
+    # XLA's CPU scheduler orders for memory, not concurrency: the full-size
+    # train step's buffers then take 39.9 GiB instead of 59.2 GiB
+    os.environ['XLA_FLAGS'] = (os.environ.get('XLA_FLAGS', '') +
+                               ' --xla_cpu_enable_concurrency_optimized_scheduler=false')
     for name in args.names:
         if args.write:
             write_reference(name)

@@ -371,15 +371,17 @@ def test_weight_bridge_carries_the_deep_fusion_leaves(jax_forwards, segmentor):
     assert head_in == 64 + (32 if segmentor == 'segformer' else 64) + 28
 
 
-def test_image_feature_files_read_as_in_jax(tmp_path, monkeypatch):
+def test_image_feature_files_read_as_in_jax(tmp_path):
     """make_tree's image_feature/<frame>.npy ({point index: vector} for the
     points a camera sees) through the port's WaymoDataset equal the JAX
     package's reading of the same tree, array for array, in validation
-    mode; the rear sector reads as zero rows."""
+    mode; the rear sector reads as zero rows. Both packages voxelize on
+    their C++ voxelizer where it builds (``_on_numpy``: both on numpy)."""
     from openseg3d_tpu import native
     from openseg3d_tpu.config import cfg_from_file as jax_cfg_from_file
     from openseg3d_tpu.data.waymo_dataset import WaymoDataset as JaxWaymoDataset
-    monkeypatch.setattr(native, 'available', lambda: False)
+    from openseg3d_tpu_torch import native as port_native
+    assert native.available() == port_native.available()
     names = make_tree(str(tmp_path), 2, 3000, image_feature_dim=28)
     ov = {k: dict(v) for k, v in TINY_OVERRIDES.items()}
     ov['DATASET'] = dict(ov['DATASET'], POINT_CLOUD_RANGE=[-75.2, -75.2, -2, 75.2, 75.2, 4],
@@ -399,3 +401,11 @@ def test_image_feature_files_read_as_in_jax(tmp_path, monkeypatch):
         assert not f[behind].any() and (np.abs(f[~behind]).sum(1) > 0).all()
         pad = ours.pad(a)
         assert pad['point_image_features'].shape == (4096, 28)
+
+
+def test_image_feature_files_read_as_in_jax_on_numpy(tmp_path, monkeypatch):
+    from openseg3d_tpu import native
+    from openseg3d_tpu_torch import native as port_native
+    monkeypatch.setattr(native, 'available', lambda: False)
+    monkeypatch.setattr(port_native, 'available', lambda: False)
+    test_image_feature_files_read_as_in_jax(tmp_path)

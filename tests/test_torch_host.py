@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from openseg3d_tpu.config import cfg_from_file as jax_cfg_from_file
 from openseg3d_tpu.config import default_config as jax_default_config
 from openseg3d_tpu.core.metrics import confusion_matrix as jax_confusion_matrix
+from openseg3d_tpu.core.voxelizer import VoxelGenerator as JaxVoxelGenerator
 from openseg3d_tpu.core.voxelizer import majority_voxel_labels as jax_majority
 from openseg3d_tpu.core.voxelizer import points_to_voxel as jax_points_to_voxel
 from openseg3d_tpu.data.batch import collate_padded as jax_collate
@@ -22,7 +23,8 @@ from openseg3d_tpu.models.segmentors.common import ModelSpec as JaxModelSpec
 
 from openseg3d_tpu_torch.config import ConfigDict, cfg_from_file, default_config
 from openseg3d_tpu_torch.core.metrics import IOUMetric, confusion_matrix
-from openseg3d_tpu_torch.core.voxelizer import VoxelGenerator, majority_voxel_labels
+from openseg3d_tpu_torch.core.voxelizer import (VoxelGenerator, majority_voxel_labels,
+                                                points_to_voxel)
 from openseg3d_tpu_torch.data.batch import collate_padded, pad_sample, to_device
 from openseg3d_tpu_torch.models.segmentors.common import ModelSpec
 
@@ -46,17 +48,21 @@ def _assert_same_dict(a, b):
 
 
 def test_voxelizer_and_majority_labels_equal_jax():
+    """Both VoxelGenerators (each package's C++ voxelizer where it builds)
+    and both numpy paths give the same arrays."""
     cfg = tiny_cfg()
     rng = np.random.RandomState(0)
     pts = _cloud(rng, 700, cfg)
     vg = VoxelGenerator(cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE)
-    coords, ids = vg.generate(pts)
-    jc, jids = jax_points_to_voxel(pts, cfg.DATASET.VOXEL_SIZE,
-                                   cfg.DATASET.POINT_CLOUD_RANGE)
-    np.testing.assert_array_equal(coords, jc)
-    np.testing.assert_array_equal(ids, jids)
-    assert coords.dtype == jc.dtype and ids.dtype == jids.dtype
-    assert (ids == -1).any() and (ids >= 0).any()
+    jvg = JaxVoxelGenerator(cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE)
+    for (coords, ids), (jc, jids) in (
+            (vg.generate(pts), jvg.generate(pts)),
+            (points_to_voxel(pts, cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE),
+             jax_points_to_voxel(pts, cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE))):
+        np.testing.assert_array_equal(coords, jc)
+        np.testing.assert_array_equal(ids, jids)
+        assert coords.dtype == jc.dtype and ids.dtype == jids.dtype
+        assert (ids == -1).any() and (ids >= 0).any()
 
     labels = rng.randint(0, 5, pts.shape[0])
     labels[::7] = 255

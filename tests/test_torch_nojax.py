@@ -28,12 +28,18 @@ from openseg3d_tpu_torch.models.deep_fusion import DeepFusionBlock
 from openseg3d_tpu_torch import bench
 from openseg3d_tpu_torch.tools import measure_capacities, profile_step, verify_capacities
 from openseg3d_tpu_torch.utils import profiling
+from openseg3d_tpu_torch import native, parity
+from openseg3d_tpu_torch.tools import import_checkpoint, rehearsal
 OV = %r
 cfg = cfg_from_file(None, overrides=OV)
 rng = np.random.RandomState(0)
 pts = np.concatenate([rng.uniform(-3, 3, (500, 3)), rng.randn(500, 3)], 1).astype(np.float32)
 vg = VoxelGenerator(cfg.DATASET.VOXEL_SIZE, cfg.DATASET.POINT_CLOUD_RANGE)
 coords, ids = vg.generate(pts)
+assert native.available(), native.build_error()   # the C++ voxelizer, the production path
+nc, nids = native.native_points_to_voxel(pts, cfg.DATASET.VOXEL_SIZE,
+                                        cfg.DATASET.POINT_CLOUD_RANGE)
+assert np.array_equal(nc, coords) and np.array_equal(nids, ids)
 labels = rng.randint(0, 22, 500)
 s = dict(points=pts, voxel_coords=coords, point_voxel_ids=ids, point_labels=labels,
          voxel_labels=majority_voxel_labels(ids, labels, coords.shape[0]))
@@ -73,9 +79,11 @@ def _no_jax_script():
 def test_port_runs_without_jax():
     """The port's runtime path imports no JAX, flax or optax and nothing of
     the JAX package: with them and the JAX bench blocked, a subprocess
-    imports the port, its data modules, both command-line tools and the
-    measuring entry points (bench, profile_step, the capacity tools and
-    utils.profiling), builds the model, runs a forward and an eval step,
+    imports the port, its data modules, the command-line tools (train,
+    eval, rehearsal, import_checkpoint), the checkpoint and parity modules,
+    the C++ voxelizer's binding and the measuring entry points (bench,
+    profile_step, the capacity tools and utils.profiling), voxelizes on the
+    C++ path, builds the model, runs a forward and an eval step,
     and takes one train step; then voxelizes on the device (equal to the
     host voxelizer's batch) and runs the forward of a Segformer with image
     features (DeepFusion)."""

@@ -1,7 +1,7 @@
 """The port's SPNet train step against the JAX package's (the model, the
 tolerances and the forward tests are in tests/test_torch_spnet.py): one
 float32 step on a well-conditioned batch, every leaf held, and one on an
-ordinary batch, the loss and the BatchNorm statistics held; in both every
+ordinary batch, every leaf held against JAX's own sensitivity; in both every
 one of the 43 sparse convs runs the gather-only backward."""
 
 import numpy as np
@@ -13,6 +13,8 @@ from helpers import synthetic_batch
 from test_torch_segformer import TOL
 from test_torch_spnet import ENCODER_TOL, N_CONVS, _cfg
 from test_torch_train import _assert_trees_close, _leaves, _step_both
+
+NOISE_FACTOR = 2.0    # x JAX's own gradient movement under 1e-7 relative weight noise
 
 
 def test_spnet_train_step_matches_jax(monkeypatch):
@@ -56,20 +58,35 @@ def test_spnet_train_step_matches_jax(monkeypatch):
 
 def test_spnet_train_step_on_an_ordinary_batch(monkeypatch):
     """One train step on a batch that was not picked for its conditioning
-    (seed 1, where OHEM's kept set and the max-VFE route gradients to other
-    points than in JAX): the loss and the BatchNorm statistics, which no
-    discrete choice of the backward touches, within abs/rel 1e-4, and all 43
-    gather-only backwards. The gradients are printed, not held: the worst
-    leaf differs by several percent of its largest magnitude."""
+    (seed 1): the loss and the BatchNorm statistics within abs/rel 1e-4, all
+    43 gather-only backwards, and every gradient leaf within (1e-4 +
+    NOISE_FACTOR x JAX's own movement) x its largest magnitude, where the
+    movement is the largest change of JAX's gradient leaf, over its largest
+    magnitude, when the compiled JAX step runs again on two draws of the
+    weights with 1e-7 relative noise.
+
+    On this seed OHEM keeps the same rows on both sides (the nearest
+    probability lies 0.163 from the 0.7 threshold). The worst leaf,
+    SparseUnet_0/SparseBasicBlock_3/SparseConv_0/kernel, lies downstream of
+    the max-VFE, so a max-VFE tie cannot explain it either: the step itself
+    is that sensitive here, and JAX's own gradient on that leaf moves by as
+    much under the noise (about 8% of its largest magnitude) as the port's
+    differs from it."""
     apply_sparse_conv.backwards = 0
     cfg = _cfg()
-    metrics, grads, new_stats, _, jloss, jgrads, jstats, _, _ = \
-        _step_both(monkeypatch, cfg, synthetic_batch(cfg, batch_size=2, seed=1))
+    metrics, grads, new_stats, _, jloss, jgrads, jstats, _, _, move = _step_both(
+        monkeypatch, cfg, synthetic_batch(cfg, batch_size=2, seed=1), noise_draws=2)
     assert apply_sparse_conv.backwards == N_CONVS
     np.testing.assert_allclose(float(metrics['loss']), float(jloss), **TOL)
     _assert_trees_close(new_stats, jstats, 'batch_stats')
     mine, ref = dict(_leaves(grads)), dict(_leaves(jgrads))
-    worst = max(((float(np.abs(mine[p] - ref[p]).max()) - TOL['atol'])
-                 / float(np.abs(ref[p]).max()), '/'.join(p)) for p in ref)
-    print(f'worst gradient leaf: {worst[1]}, {worst[0]:.3g} of its largest magnitude '
-          f'beyond {TOL["atol"]}')
+    assert set(mine) == set(ref)
+    ratios = {}
+    for p in ref:
+        path, big = '/'.join(p), float(np.abs(ref[p]).max())
+        gate = (TOL['atol'] + NOISE_FACTOR * move[path]) * big
+        ratios[path] = float(np.abs(mine[p] - ref[p]).max()) / max(gate, 1e-30)
+    worst = max(ratios, key=ratios.get)
+    print(f'worst gradient leaf against its gate: {worst}, {ratios[worst]:.3g} (JAX\'s own '
+          f'movement {move[worst]:.3g})')
+    assert ratios[worst] <= 1.0, {p: r for p, r in ratios.items() if r > 1.0}

@@ -50,14 +50,10 @@ from openseg3d_tpu.models.losses import build_criterion as jax_build_criterion
 from openseg3d_tpu.models.optim import build_optimizer as jax_build_optimizer
 from openseg3d_tpu.models.optim import build_schedule as jax_build_schedule
 
-from openseg3d_tpu_torch import engine
+from openseg3d_tpu_torch import engine, parity
 from openseg3d_tpu_torch.data.batch import to_device
 from openseg3d_tpu_torch.engine import TrainState, build_segmentor, make_train_step
-from openseg3d_tpu_torch.models.deep_fusion import DeepFusionBlock
-from openseg3d_tpu_torch.models.ocr import OCRLayer
 from openseg3d_tpu_torch.models.optim import build_optimizer, build_schedule
-from openseg3d_tpu_torch.models.segmentors.common import SegmentorHead
-from openseg3d_tpu_torch.models.swformer import MLP, WindowAttention
 from openseg3d_tpu_torch.weights import load_flax_variables, to_flax_variables
 
 from helpers import synthetic_batch, tiny_cfg
@@ -75,16 +71,6 @@ def _cfg(**extra):
                            'DROP_PATH_RATE': 0.0},
                     TRAIN={'OPTIMIZER': 'sgd', 'LR': 50.0, 'MOMENTUM': 0.9,
                            'WEIGHT_DECAY': 1e-4}, **extra)
-
-
-def _no_dropout(model):
-    for m in model.modules():
-        if isinstance(m, WindowAttention):
-            m.attn_drop = 0.0
-        elif isinstance(m, (MLP, SegmentorHead, OCRLayer)):
-            m.drop = 0.0
-        elif isinstance(m, DeepFusionBlock):
-            m.attn_pdrop = 0.0
 
 
 def _port_state(cfg, params, stats):
@@ -118,13 +104,17 @@ def _leaf_errors(mine, ref):
             for p in b}
 
 
-def _step_both(monkeypatch, cfg, nb=None, variables=None):
+def _step_both(monkeypatch, cfg, nb=None, variables=None, noise_draws=0):
     """One train step of the port and of JAX from the same random weights
     on the same batch (default: two synthetic samples). The weights are
     `variables` ((params, batch_stats)), else drawn over the JAX model's
     tree. Returns (port
     metrics, port grads, new stats, new params, JAX loss, grads, new stats,
-    new params, the initial params)."""
+    new params, the initial params), and with `noise_draws` a tenth item:
+    JAX's own movement, {leaf path: the largest change of JAX's gradient
+    leaf over its largest magnitude} when the compiled JAX step runs again
+    on `noise_draws` copies of the weights with 1e-7 relative noise
+    (``parity.perturbed``, RandomState(100 + draw))."""
     jmodel, jspec = jax_engine.build_segmentor(cfg)
     if nb is None:
         nb = synthetic_batch(cfg, batch_size=2, seed=3)
@@ -140,7 +130,7 @@ def _step_both(monkeypatch, cfg, nb=None, variables=None):
 
     # the port: one train step, recording the aux labels its 1-NN gives
     state, spec = _port_state(cfg, params, stats)
-    _no_dropout(state.model)
+    parity.no_dropout(state.model)
     aux = {}
 
     def recording_transfer(*args, **kwargs):
@@ -176,7 +166,13 @@ def _step_both(monkeypatch, cfg, nb=None, variables=None):
         return loss, g, new_stats, optax.apply_updates(params, updates)
 
     jloss, jgrads, jstats, jparams = jax.device_get(jax_step(params, stats, jb))
-    return metrics, grads, new_stats, new_params, jloss, jgrads, jstats, jparams, params
+    out = (metrics, grads, new_stats, new_params, jloss, jgrads, jstats, jparams, params)
+    if not noise_draws:
+        return out
+    moved = [parity.flat_leaves(jax.device_get(jax_step(
+        parity.perturbed(params, np.random.RandomState(100 + d)), stats, jb))[1])
+        for d in range(noise_draws)]
+    return out + (parity.movement(parity.flat_leaves(jgrads), moved),)
 
 
 @pytest.fixture(scope='module')
