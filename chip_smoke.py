@@ -17,8 +17,9 @@ Phases (each asserts or raises; nothing is caught):
   2. build: compiles every kernel source of openseg3d_tpu_torch/csrc/ with
      nvcc for sm_90a, one nvcc process each, all started together; prints
      each kernel's registers and spills (ptxas); the bf16 tensor-core
-     kernels (*_mma_kernel: the eval kernel's 4 head widths and the train
-     kernels') must not spill;
+     kernels (*_mma_kernel, 21: the eval kernel's 4 head widths, the train
+     forward's 5 (head width, key tile) pairs, the one-pass backward's 4
+     and the two-pass backward's 2 x 4) must not spill;
   3. kernel vs plain: the eval window-attention kernel (B1) against its plain
      PyTorch version at every (T, C) the default config's window levels give
      the 4 stages, in float32 (max abs error <= 1e-5) and bfloat16 (within
@@ -36,9 +37,16 @@ Phases (each asserts or raises; nothing is caught):
      train_forward_bound (2^-7 |plain| + 2^-8 / (1 - p) max|v|: the kernel
      rounds the softmax weights to bf16, as the TPU kernel does); dq, dk and
      dv each within 1e-4 (float32) or 4 bf16 ulps (bfloat16) of their
-     largest magnitude; windows past nw zero, gradients finite; then per
-     shape in bf16: B2f and B2b at rate 0 and 0.1, SDPA with dropout 0.1,
-     SDPA's backward (live windows) and both bounds, and the plain version;
+     largest magnitude; windows past nw zero, gradients finite; in bf16 at
+     rate 0.1 also: the keep bits B2f stores, in each block shape (16 and,
+     above head_dim 6, 64 query rows), equal pack_keep_bits of the plain
+     mask on the live
+     windows bit for bit, and B2b in both paths (one pass where T allows
+     it, two passes) within the bound and bit-equal over two calls; then
+     per shape in bf16: B2f and B2b at rate 0 (the tables' choice) and at
+     0.1 in each block shape and path, the chosen one marked, SDPA with
+     dropout 0.1, SDPA's backward (live windows), both bounds, the stored
+     bits' bytes, and the plain version;
   3c. 1-NN vs plain: the B3 kernels (a search over point splits, then a
      combine of the partials) against their plain version on the real
      frame's voxel centres (the stage-4 aux centres against the
@@ -76,9 +84,11 @@ Phases (each asserts or raises; nothing is caught):
      launches of one step (B2f and B2b once per attention level and layer,
      B3 once) and its gather-only backwards (one per sparse conv, two per
      encoder layer for permute_rows), a finite loss, finite gradients,
-     moved parameters and BatchNorm statistics; under the profiler the bf16
-     step runs B2f and B2b as the tensor-core kernels, never the float32 FMA
-     bodies, and at most one bf16 index_add_ (the devoxelize gather's
+     moved parameters and BatchNorm statistics; prints the keep bits'
+     bytes a step and the step's peak memory; under the profiler the bf16
+     step runs B2f and B2b as the tensor-core kernels (B2b's one-pass kernel
+     and two-pass kernels as ops/attention's table chooses them by T), never
+     the float32 FMA bodies, and at most one bf16 index_add_ (the devoxelize gather's
      backward); takes the same first step through the plain versions and
      compares loss and gradients; takes it once more and prints whether the
      gradients are bit-equal (no --deterministic); times 1 + 5 steps, with
@@ -415,10 +425,15 @@ def live_cotangent(gen, n, t, c, nw, dtype):
 def check_train_kernels(levels, channels):
     """Phase 3b. Returns (max float32 forward error, max float32 gradient
     error), in absolute terms. Prints per shape, in bf16: B2f and B2b at
-    rate 0 and 0.1, SDPA with dropout 0.1 and SDPA's backward on the live
-    windows, and the bounds of B2f and B2b."""
+    rate 0 (the tables' choice) and at 0.1 in each block shape and path
+    (the chosen one marked *), SDPA with dropout 0.1 and SDPA's backward on
+    the live windows, the bounds of B2f and B2b, and the stored bits' bytes
+    on the live windows beside the time the card takes to write and read
+    them once."""
     import torch
-    from openseg3d_tpu_torch.ops.attention import (train_forward_bound,
+    from openseg3d_tpu_torch.ops.attention import (dropout_keep_mask, pack_keep_bits,
+                                                   train_backward_shape, train_forward_bound,
+                                                   train_forward_shape,
                                                    window_attention_packed_train_plain,
                                                    window_attention_train_backward,
                                                    window_attention_train_forward)
@@ -426,20 +441,37 @@ def check_train_kernels(levels, channels):
     seed = torch.tensor([20260516], dtype=torch.int32, device='cuda')
     max_fwd32, max_grad32, rows = 0.0, 0.0, []
     print('stage   T    C     W    nw  fwd_f32   grad_f32(rel)  fwd_bf16(/bound)  '
-          'grad_bf16(rel)  pfwd_ms  pbwd_ms')
+          'grad_bf16(rel, worst path)  pfwd_ms  pbwd_ms')
+
+    def grad_rel(dpk, ref, c):
+        return max(float((g.float() - r.float()).abs().max()) / max(float(r.float().abs().max()),
+                                                                    1e-30)
+                   for g, r in zip(dpk.split(c, -1), ref.split(c, -1)))
+
     for s, stage_levels in enumerate(levels):
         c = channels[s]
         for lv in stage_levels:
             t, n = lv.max_tokens, lv.num_windows
             nw = max(1, n - max(1, n // 4))
+            hd = c // 8
+            try:                                   # the one pass takes T <= 256
+                one_pass_ok = train_backward_shape(t, hd, 8, True)[0] > 0
+            except ValueError:
+                one_pass_ok = False
+            paths = (False, True) if one_pass_ok else (False,)
+            try:                                   # no 64-row block at head_dim 6
+                block_rows_all = (16, 64) if train_forward_shape(t, hd, 8, 64) else (16,)
+            except ValueError:
+                block_rows_all = (16,)
             res = {}
             for dtype in (torch.float32, torch.bfloat16):
                 for rate in (0.0, 0.1):
                     packed, bias, nwt = attention_case(gen, n, t, c, nw, dtype)
                     gout = live_cotangent(gen, n, t, c, nw, dtype)
-                    out, stats = window_attention_train_forward(packed, bias, seed, nwt, 8, rate)
+                    out, stats, bits = window_attention_train_forward(packed, bias, seed, nwt, 8,
+                                                                      rate)
                     dpk = window_attention_train_backward(packed, bias, seed, nwt, out, stats,
-                                                          gout, 8, rate)
+                                                          bits, gout, 8, rate)
                     x = packed.clone().requires_grad_(True)
                     want = window_attention_packed_train_plain(x, bias, seed, nwt, 8, rate)
                     want.backward(gout)
@@ -457,31 +489,52 @@ def check_train_kernels(levels, channels):
                         assert bool((err <= lim).all()), (s, t, c, rate, fwd_abs)
                         fwd_rel = float((err / lim.clamp(min=1e-30)).max())
                     # dq, dk and dv, each against its own largest magnitude
-                    g_abs, g_rel = 0.0, 0.0
-                    for part in range(3):
-                        got_p = dpk[..., part * c:(part + 1) * c].float()
-                        ref_p = x.grad[..., part * c:(part + 1) * c].float()
-                        e = float((got_p - ref_p).abs().max())
-                        g_abs = max(g_abs, e)
-                        g_rel = max(g_rel, e / max(float(ref_p.abs().max()), 1e-30))
+                    g_abs = max(float((g.float() - r.float()).abs().max())
+                                for g, r in zip(dpk.split(c, -1), x.grad.split(c, -1)))
+                    g_rel = grad_rel(dpk, x.grad, c)
                     bound = 1e-4 if dtype == torch.float32 else 4 * 2.0 ** -7
                     assert g_rel <= bound, (s, t, c, rate, dtype, g_rel)
                     assert not out[nw:].any() and not dpk[nw:].any()
                     assert bool(torch.isfinite(dpk.float()).all())
+                    if dtype == torch.bfloat16 and rate > 0.0:
+                        # the stored bits in each block shape, bit for bit;
+                        # both backward paths, each twice: the same bits
+                        live = (torch.arange(n, device='cuda') < nw)[:, None, None, None]
+                        keep = pack_keep_bits(dropout_keep_mask(seed, n, 8, t, rate) & live)
+                        for block_rows in block_rows_all:
+                            o2, _, b2 = window_attention_train_forward(
+                                packed, bias, seed, nwt, 8, rate, rows=block_rows)
+                            stored = torch.where(live[..., None], b2.view(torch.int32), 0)
+                            assert torch.equal(stored, keep.view(torch.int32)), \
+                                (s, t, c, block_rows)
+                            assert bool(((o2.float() - want).abs() <= lim).all()), \
+                                (s, t, c, block_rows)
+                        for one_pass in paths:
+                            d1, d2 = (window_attention_train_backward(
+                                packed, bias, seed, nwt, out, stats, bits, gout, 8, rate,
+                                one_pass=one_pass) for _ in range(2))
+                            assert torch.equal(d1.view(torch.int16), d2.view(torch.int16)), \
+                                (s, t, c, one_pass)
+                            g_rel = max(g_rel, grad_rel(d1, x.grad, c))
+                            assert g_rel <= bound, (s, t, c, one_pass, g_rel)
                     res[(dtype, rate)] = (fwd_rel, g_abs, g_rel)
                     if dtype == torch.float32:
                         max_fwd32, max_grad32 = max(max_fwd32, fwd_abs), max(max_grad32, g_abs)
-            # time the production dtype (bf16) at rate 0 and 0.1; kernel and
-            # plain in turns, the library calls on the live windows
-            times = {}
-            for rate in (0.0, 0.1):
-                out, stats = window_attention_train_forward(packed, bias, seed, nwt, 8, rate)
-                kf = functools.partial(window_attention_train_forward, packed, bias, seed, nwt,
-                                       8, rate)
-                kb = functools.partial(window_attention_train_backward, packed, bias, seed, nwt,
-                                       out, stats, gout, 8, rate)
-                kf(), kb()
-                times[rate] = (device_ms(kf, 10), device_ms(kb, 10))
+            # time the production dtype (bf16): at rate 0 the tables' choice,
+            # at 0.1 every block shape and path; kernel and plain in turns,
+            # the library calls on the live windows
+            out0, stats0, _ = window_attention_train_forward(packed, bias, seed, nwt, 8, 0.0)
+            t_f0 = device_ms(functools.partial(window_attention_train_forward, packed, bias, seed,
+                                               nwt, 8, 0.0), 10)
+            t_b0 = device_ms(functools.partial(window_attention_train_backward, packed, bias,
+                                               seed, nwt, out0, stats0, None, gout, 8, 0.0), 10)
+            t_f = {r: device_ms(functools.partial(window_attention_train_forward, packed, bias,
+                                                  seed, nwt, 8, 0.1, rows=r), 10)
+                   for r in block_rows_all}
+            t_b = {op: device_ms(functools.partial(window_attention_train_backward, packed, bias,
+                                                   seed, nwt, out, stats, bits, gout, 8, 0.1,
+                                                   one_pass=op), 10)
+                   for op in paths}
             x = packed.clone().requires_grad_(True)
 
             def pf():
@@ -498,17 +551,29 @@ def check_train_kernels(levels, channels):
             sb_ms = sdpa_backward_ms(q, k, v, bias[:nw], iters=10)
             bf_ms, _ = attention_bound(nw, t, c, 2, kind='train_fwd')
             bb_ms, _ = attention_bound(nw, t, c, 2, kind='bwd')
-            rows.append((s + 1, t, c, nw, times[0.0][0], times[0.1][0], times[0.0][1],
-                         times[0.1][1], sd_ms, sb_ms, bf_ms, bb_ms))
+            bits_bytes = nw * 8 * (-(-t // 16)) ** 2 * 32
+            fwd64 = train_forward_shape(t, hd, 8)[0] != 8
+            one = train_backward_shape(t, hd, 8)[0] > 0
+            rows.append((s + 1, t, c, nw, t_f0, f'{t_f[16]:.4f}' + '*' * (not fwd64),
+                         f'{t_f[64]:.4f}' + '*' * fwd64 if 64 in t_f else '-', t_b0,
+                         f'{t_b[False]:.4f}' + '*' * (not one),
+                         f'{t_b[True]:.4f}' + '*' * one if one_pass_ok else '-',
+                         sd_ms, sb_ms, bf_ms, bb_ms, bits_bytes / 1e6,
+                         2 * bits_bytes / HBM_BYTES_PER_S * 1e3))
             r32, r16 = res[(torch.float32, 0.1)], res[(torch.bfloat16, 0.1)]
             print(f'{s + 1:5d} {t:4d} {c:4d} {n:5d} {nw:5d}  {r32[0]:.2e}  {r32[2]:.2e}       '
-                  f'{r16[0]:.3f}             {r16[2]:.2e}        {pf_ms:7.4f}  '
+                  f'{r16[0]:.3f}             {r16[2]:.2e}                    {pf_ms:7.4f}  '
                   f'{pfb_ms - pf_ms:7.4f}', flush=True)
-    print('bf16 per shape, live windows (device ms per call): B2f at rate 0 / 0.1, B2b at rate '
-          '0 / 0.1, SDPA with dropout 0.1, SDPA backward, bound of B2f / B2b')
+    print('bf16 per shape, live windows (device ms per call; * the tables\' choice): B2f at '
+          'rate 0 / at 0.1 in 16- and 64-row blocks, B2b at rate 0 / at 0.1 in two passes and '
+          'in one, SDPA with dropout 0.1, SDPA backward, bound of B2f / B2b, stored bits MB '
+          '(written once, read once: ms at 3.35 TB/s)')
     for row in rows:
-        print('  st {} T {:4d} C {:4d} nw {:5d}: B2f {:.4f} / {:.4f}  B2b {:.4f} / {:.4f}  '
-              'SDPA {:.4f}  SDPA bwd {:.4f}  bound {:.5f} / {:.5f}'.format(*row), flush=True)
+        print('  st {} T {:4d} C {:4d} nw {:5d}: B2f {:.4f} / {} {}  B2b {:.4f} / {} {}  '
+              'SDPA {:.4f}  SDPA bwd {:.4f}  bound {:.5f} / {:.5f}  bits {:.3f} MB '
+              '({:.5f} ms)'.format(*row), flush=True)
+    print('bf16 at rate 0.1, every shape: stored bits equal the plain packer\'s in each block '
+          'shape; B2b bit-equal over two calls in each path', flush=True)
     return max_fwd32, max_grad32
 
 
@@ -985,6 +1050,26 @@ def check_conv_weight_grads(spec, batch):
     return errs
 
 
+def b2b_paths(spec):
+    """(B2b's launches a train step in one pass, in two passes, the keep
+    bits' bytes a step): the passes as ops/attention.train_backward_shape
+    chooses them at the config's window levels, the bits as B2f stores them
+    at the levels' window capacities."""
+    from openseg3d_tpu_torch.models.backbones.point_transformer import (CHANNELS,
+                                                                        stage_level_specs)
+    from openseg3d_tpu_torch.ops.attention import train_backward_shape
+    one = two = nbytes = 0
+    for s, stage_levels in enumerate(stage_level_specs(spec)):
+        for lv in stage_levels:
+            t, depth = lv.max_tokens, spec.depths[s]
+            if train_backward_shape(t, CHANNELS[s] // 8, 8)[0]:
+                one += depth
+            else:
+                two += depth
+            nbytes += depth * lv.num_windows * 8 * (-(-t // 16)) ** 2 * 32
+    return one, two, nbytes
+
+
 def run_train_slice(cfg, batch, expected_attention):
     """Phase 4b. Returns a dict of the results."""
     import torch
@@ -1086,8 +1171,11 @@ def run_train_slice(cfg, batch, expected_attention):
     torch.cuda.reset_peak_memory_stats()
     times = [cuda_ms(lambda i=i: step(state, batch, seed=i), 1) for i in range(2, 7)]
     peak = torch.cuda.max_memory_allocated()
-    print(f'train step ms: {[round(x, 3) for x in times]}, peak {peak / 2**30:.2f} GiB',
-          flush=True)
+    one_pass, two_pass, bits_bytes = b2b_paths(spec)
+    print(f'train step ms: {[round(x, 3) for x in times]}, peak {peak / 2**30:.2f} GiB, of it '
+          f'the keep bits B2f stores for the backward {bits_bytes / 2**30:.3f} GiB a step '
+          f'({bits_bytes} bytes at the window capacities); B2b {one_pass} launches in one '
+          f'pass, {two_pass} in two', flush=True)
     plain_times = []
     with attention_patch, knn_patch:
         plain_times = [cuda_ms(lambda i=i: step(state, batch, seed=i), 1) for i in range(7, 9)]
@@ -1098,11 +1186,11 @@ def run_train_slice(cfg, batch, expected_attention):
     events, wall = trace(lambda: step(state, batch, seed=9))
     # the bf16 step runs the tensor-core kernels; the float32 FMA bodies
     # (window_attention_train_{fwd,dq,dkdv}_kernel) must not launch
+    b2b_kernels = {k: named_kernels(events, f'window_attention_train_{k}_mma_kernel')
+                   for k in ('onepass', 'dq', 'dkdv')}
     prof = dict(wall_ms=wall, busy_ms=busy_ms(events),
                 b2f=named_kernels(events, 'window_attention_train_fwd_mma_kernel'),
-                b2b=tuple(map(sum, zip(
-                    named_kernels(events, 'window_attention_train_dq_mma_kernel'),
-                    named_kernels(events, 'window_attention_train_dkdv_mma_kernel')))),
+                b2b=tuple(map(sum, zip(*b2b_kernels.values()))),
                 b3=tuple(map(sum, zip(named_kernels(events, 'nearest_point_kernel'),
                                       named_kernels(events, 'nearest_point_combine_kernel')))),
                 fma=sum(named_kernels(events, f'window_attention_train_{k}_kernel')[1]
@@ -1122,7 +1210,10 @@ def run_train_slice(cfg, batch, expected_attention):
     print(f'plain step under the profiler (ms, kernels): {plain_prof}', flush=True)
     assert prof['b2f'][1] == expected_attention, prof
     assert prof['b3'][1] == 2, prof                                 # search + combine
-    assert prof['b2b'][1] == 2 * expected_attention, prof           # dq + dk/dv passes
+    # one kernel a one-pass backward, two (dq, dk/dv) a two-pass one
+    assert [b2b_kernels[k][1] for k in ('onepass', 'dq', 'dkdv')] == \
+        [one_pass, two_pass, two_pass] and one_pass + two_pass == expected_attention, \
+        (b2b_kernels, one_pass, two_pass)
     assert prof['fma'] == 0, prof
     # the gathers' backwards scatter no more: at most the devoxelize gather's
     assert prof['index_add_bf16'][1] <= 1, prof
@@ -1131,7 +1222,8 @@ def run_train_slice(cfg, batch, expected_attention):
     return dict(launches=launches, backwards=n_backwards, loss=loss, plain_loss=plain_loss,
                 loss_rel=loss_rel, grad_rel=grad_rel, repeat_differ=len(differ),
                 step_ms=statistics.median(times), plain_step_ms=statistics.median(plain_times),
-                peak=peak, prof=prof, plain_prof=plain_prof)
+                peak=peak, prof=prof, plain_prof=plain_prof, bits_bytes=bits_bytes,
+                b2b_paths=(one_pass, two_pass))
 
 
 def check_small_reference(device):
@@ -2510,13 +2602,14 @@ BENCH_RUNS = (
     ('Segformer+DeepFusion infer', ['--mode', 'infer', '--image_feature'], {'B1': 105}),
 )
 # the kernels of a Segformer train step as the profiler names them, and their
-# launches a step: B2f; B2b's dq pass and dk/dv pass; B3's search and combine
-PROFILED_KERNELS = {'window_attention_train_fwd': 105, 'window_attention_train_dq': 105,
-                    'window_attention_train_dkdv': 105, 'nearest_point_kernel': 1,
-                    'nearest_point_combine_kernel': 1}
+# launches a step: B2f; B2b's one-pass kernel, or its dq pass and dk/dv pass
+# (None: as b2b_paths counts them); B3's search and combine
+PROFILED_KERNELS = {'window_attention_train_fwd': 105, 'window_attention_train_onepass': None,
+                    'window_attention_train_dq': None, 'window_attention_train_dkdv': None,
+                    'nearest_point_kernel': 1, 'nearest_point_combine_kernel': 1}
 
 
-def run_measuring_tools(smi):
+def run_measuring_tools(smi, b2b_split):
     """Phase H: the port's measuring entry points on the card, in-process
     through main([...]): the bench in each run of BENCH_RUNS (one JSON line,
     finite, the launches each wrapper counted equal to the run's launches a
@@ -2568,7 +2661,10 @@ def run_measuring_tools(smi):
           f'{ {k: round(v, 3) for k, v in prof["by_bucket"].items()} }, launches {launches} in '
           f'3 steps, on {smi}', flush=True)
     assert launches == {'B1': 0, 'B2f': 315, 'B2b': 315, 'B3': 3}, launches
+    one_pass, two_pass = b2b_split
     for part, per_step in PROFILED_KERNELS.items():
+        if per_step is None:
+            per_step = one_pass if part.endswith('onepass') else two_pass
         n = sum(c for name, _, c in prof['top'] if part in name)
         assert n == per_step, (part, n)
     assert prof['by_bucket']['attention'] > 0 and prof['by_bucket']['knn'] > 0, prof
@@ -2634,8 +2730,10 @@ def main() -> int:
                 mma_kernels.add(kernel)
                 assert stores == loads == 0, (kernel, stores, loads)
     # every bf16 tensor-core kernel was seen by the gate: the eval kernel and
-    # the three train kernels, each at head widths 6, 12, 24 and 48
-    assert len(mma_kernels) == 16, sorted(mma_kernels)
+    # the one-pass and two two-pass train backward kernels at head widths 6,
+    # 12, 24 and 48, and the train forward at its 5 (head width, key tile)
+    # pairs
+    assert len(mma_kernels) == 21, sorted(mma_kernels)
 
     # 3. kernel vs plain at the main path's shapes
     cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'))
@@ -2686,7 +2784,7 @@ def main() -> int:
           f'gather-only backwards {tr["backwards"]} (conv, permute_rows), bf16 index_add '
           f'{tr["prof"]["index_add_bf16"]}, all index kernels {tr["prof"]["index_add"]} (ms, '
           f'launches), {tr["repeat_differ"]} gradient leaves differ between two identical '
-          f'steps, on {smi}', flush=True)
+          f'steps, keep bits {tr["bits_bytes"] / 2**30:.3f} GiB a step, on {smi}', flush=True)
     for name, p, med in (('kernel', tr['prof'], tr['step_ms']),
                          ('plain', tr['plain_prof'], tr['plain_step_ms'])):
         print(f'{name} train step, profiled: B2 forward {p["b2f"][0]:.3f} ms, B2 backward '
@@ -2784,7 +2882,7 @@ def main() -> int:
     # H. the measuring entry points: the bench in its modes, the profiler,
     # the capacity tools
     t0 = time.perf_counter()
-    bench_lines, profiled = run_measuring_tools(smi)
+    bench_lines, profiled = run_measuring_tools(smi, tr['b2b_paths'])
     print(f'phase H: {time.perf_counter() - t0:.1f} s', flush=True)
 
     kp, pp = tr['prof'], tr['plain_prof']

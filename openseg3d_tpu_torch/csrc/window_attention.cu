@@ -229,15 +229,15 @@ window_attention_mma_kernel(const bf16* __restrict__ q_base, const bf16* __restr
 
   // padding window: zeros, nothing to compute (the whole block returns)
   if (nw != nullptr && n % windows_per_sample >= nw[n / windows_per_sample]) {
-    wa_mma::zero_rows(out_win, c, r0, t, 0, cols);
+    wa_mma::zero_rows(out_win, c, r0, wa_mma::kRows, t, 0, cols);
     return;
   }
   wa_mma::PlainWeights weights;
   wa_mma::RowSoftmax sm;
   float l[2];
   wa_mma::attend_rows<HD>(q_base + win, k_base + win, v_base + win, stride,
-                          bias + static_cast<size_t>(n) * t, t, r0, cols, out_win, c, smem_raw,
-                          weights, sm, l);
+                          bias + static_cast<size_t>(n) * t, t, r0, 1, cols, out_win, c,
+                          smem_raw, weights, sm, l);
 }
 
 template <int HD>

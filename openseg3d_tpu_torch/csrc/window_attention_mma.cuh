@@ -4,17 +4,18 @@
 // fragment moves between them; and, built from them, the attention forward
 // of one block (attend_rows), which the eval kernel (window_attention.cu)
 // and the train forward (window_attention_train.cu, with dropout) share.
-// The train backward kernels are built from the same routines.
+// The train backward kernels are built from the same routines, and
+// transpose8 (movmatrix) turns a warp's dS^T tile into the A fragment of dS.
 //
 // Staging. A block copies whole rows of one window (the q, k|v or dO columns
 // of every head, 96-1536 bytes, always a multiple of 16) into shared memory
 // with 16-byte cp.async; rows past the window's T are zero-filled. A staged
 // row keeps the global column order (heads side by side) and is padded by 8
-// elements. The model's staged row widths (C or 2C elements, C = 48, 96, 192
-// or 384) are multiples of 8 words, so with the pad a row's pitch is 4 x an
-// odd number of 32-bit words: the 8 rows of one fragment load fall on 8
-// different groups of 4 banks, free of bank conflicts (other widths work,
-// with conflicts).
+// elements, or by 16 where 8 would leave its pitch an even multiple of 8
+// elements (row_pitch): a pitch is then 4 x an odd number of 32-bit words,
+// and the 8 rows of one fragment load fall on 8 different groups of 4
+// banks, free of bank conflicts. (The model's widths C and 2C, C = 48, 96,
+// 192 or 384, take the pad of 8; a group of heads 24 columns wide takes 16.)
 //
 // Heads are not split into arrays of their own. Every A or B register holds
 // two adjacent head columns of one row (k = 2t, 2t+1), which sit at an even
@@ -52,6 +53,11 @@ namespace wa_mma {
 using bf16 = __nv_bfloat16;
 
 constexpr int kRowPad = 8;   // elements of padding after every staged row
+
+// The pitch (elements) of a staged row of `cols` columns (a multiple of 8).
+__host__ __device__ constexpr int row_pitch(int cols) {
+  return (cols + kRowPad) / 8 % 2 ? cols + kRowPad : cols + 2 * kRowPad;
+}
 
 // How a head of width HD maps onto fragments.
 template <int HD>
@@ -247,6 +253,15 @@ __device__ __forceinline__ void mma_rows(float (&acc)[Head<HD>::kN8][4], const u
   }
 }
 
+// The transpose of an 8 x 8 bf16 matrix held one 32-bit register a lane in
+// the fragment layout (lane 4g + t: row g, columns 2t and 2t + 1), in the
+// same layout.
+__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
 // The A fragment (16 x 16) of two 16 x 8 accumulator tiles side by side,
 // rounded to bf16.
 __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
@@ -345,7 +360,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t stride, int row0, i
 // ---------------------------------------------------------------------------
 // blocks
 // ---------------------------------------------------------------------------
-constexpr int kRows = 16;       // a block's own rows (one mma tile)
+constexpr int kRows = 16;       // rows of one mma tile (a warp's own rows)
 constexpr int kMaxHeads = 8;    // one warp per head
 
 // Rows of the streamed side per shared-memory tile, two tiles in flight:
@@ -353,34 +368,36 @@ constexpr int kMaxHeads = 8;    // one warp per head
 template <int HD>
 __host__ __device__ constexpr int stream_tile() { return HD <= 12 ? 64 : (HD <= 24 ? 32 : 16); }
 
-// Zero columns [col, col + ncols) of rows [r0, min(r0 + kRows, rows_end))
+// Zero columns [col, col + ncols) of rows [r0, min(r0 + nrows, rows_end))
 // of a bf16 matrix with row stride `stride`: a padding window's block.
-__device__ __forceinline__ void zero_rows(bf16* base, size_t stride, int r0, int rows_end,
-                                          int col, int ncols) {
-  const int nr = min(kRows, rows_end - r0), words = ncols / 2;
+__device__ __forceinline__ void zero_rows(bf16* base, size_t stride, int r0, int nrows,
+                                          int rows_end, int col, int ncols) {
+  const int nr = min(nrows, rows_end - r0), words = ncols / 2;
   for (int i = threadIdx.x; i < nr * words; i += blockDim.x) {
     const int r = i / words, w = i - r * words;
     reinterpret_cast<uint32_t*>(base + static_cast<size_t>(r0 + r) * stride + col)[w] = 0u;
   }
 }
 
-// Shared memory of attend_rows for `cols` staged columns: the block's q
-// rows, two tiles of k|v rows and two of biases; a multiple of 16 bytes.
-template <int HD>
-__host__ __device__ constexpr size_t attend_smem(int cols) {
-  return (static_cast<size_t>(kRows) * (cols + kRowPad) +
-          2 * static_cast<size_t>(stream_tile<HD>()) * (2 * cols + kRowPad)) * sizeof(bf16) +
-         2 * stream_tile<HD>() * sizeof(float);
+// Shared memory of attend_rows for `cols` staged columns, `row_tiles`
+// 16-row query tiles and KT-row key tiles: the block's q rows, two tiles of
+// k|v rows and two of biases; a multiple of 16 bytes.
+template <int HD, int KT = stream_tile<HD>()>
+__host__ __device__ constexpr size_t attend_smem(int cols, int row_tiles = 1) {
+  return (static_cast<size_t>(kRows) * row_tiles * row_pitch(cols) +
+          2 * static_cast<size_t>(KT) * row_pitch(2 * cols)) * sizeof(bf16) +
+         2 * KT * sizeof(float);
 }
 
 // The softmax weights as they are (no dropout): attend_rows' hooks for the
 // eval kernels. A hook's stage(buf, k0) runs while key tile k0 is staged
-// into buffer buf (before its cp.async group is committed); apply(buf, kc, w)
-// gets a warp's weights exp(s - m) of the 16 keys from kc of that tile
-// (C-fragment layout) before they are rounded to bf16 for P V.
+// into buffer buf (before its cp.async group is committed);
+// apply(buf, rt, k0, kc, w) gets the weights exp(s - m) of the warp's row
+// tile rt and the 16 keys from k0 + kc (C-fragment layout; kc within the
+// tile in buffer buf) before they are rounded to bf16 for P V.
 struct PlainWeights {
   __device__ __forceinline__ void stage(int, int) {}
-  __device__ __forceinline__ void apply(int, int, float (&)[2][4]) {}
+  __device__ __forceinline__ void apply(int, int, int, int, float (&)[2][4]) {}
 };
 
 // Stage key rows [k0, k0 + KT) of k and v side by side into buffer buf of
@@ -402,38 +419,40 @@ __device__ __forceinline__ void stage_key_tile(bf16* kvs, float* bs, int kvp, co
   cp_async_commit();
 }
 
-// softmax(q_h k_h^T + bias) v_h for the 16 query rows [r0, r0 + 16) of one
-// window and the heads of a block, warp w taking the head at staged columns
-// [w HD, (w + 1) HD) (warps past `cols` only help to stage).
+// softmax(q_h k_h^T + bias) v_h for the query rows [r0, r0 + 16 row_tiles)
+// of one window and the heads of a block: with heads = cols / HD, warp w
+// takes row tile w / heads and the head at staged columns
+// [(w % heads) HD, (w % heads + 1) HD) (warps past the row tiles only help
+// to stage). One row tile and one warp per head is the eval kernels' block.
 //   q, k, v: row 0 of the window, at the block's first head column, rows
 //   `stride` elements apart, 16-byte aligned; bias: the window's T biases;
 //   cols: the block's columns (heads x HD, a multiple of 8); out: row 0 and
 //   first head column of the window's output, rows out_stride apart.
 // The block stages its q rows once, then streams the window's k and v rows
-// through shared memory in tiles of stream_tile<HD>() rows (cp.async, two
+// through shared memory in tiles of KT rows (cp.async, two
 // tiles in flight) with their biases, keys past T at -inf (so a fully
 // padded window, every bias -1e9, keeps the uniform softmax over exactly its
 // own T keys). Per 16-key chunk a warp computes its 16 x 16 logits with
 // mma_head, adds the bias, folds them into the online softmax (RowSoftmax),
 // rounds the weights to bf16 as the TPU kernel does (attn.astype(v.dtype))
-// and accumulates P V with mma_rows. Stores O / l as bf16; returns each
-// row's softmax max (sm.m) and sum (l).
-template <int HD, class Weights>
+// and accumulates P V with mma_rows. Stores O / l as bf16; returns each of
+// the warp's rows' softmax max (sm.m) and sum (l).
+template <int HD, int KT = stream_tile<HD>(), class Weights>
 __device__ __forceinline__ void attend_rows(const bf16* q, const bf16* k, const bf16* v,
                                             size_t stride, const float* bias, int t, int r0,
-                                            int cols, bf16* out, size_t out_stride,
-                                            unsigned char* smem, Weights& weights,
-                                            RowSoftmax& sm, float (&l)[2]) {
+                                            int row_tiles, int cols, bf16* out,
+                                            size_t out_stride, unsigned char* smem,
+                                            Weights& weights, RowSoftmax& sm, float (&l)[2]) {
   using H = Head<HD>;
-  constexpr int KT = stream_tile<HD>();
-  const int col = (threadIdx.x >> 5) * HD, tq = lane_t();
-  const bool live = col < cols;
-  const int qp = cols + kRowPad, kvp = 2 * cols + kRowPad;
-  bf16* qs = reinterpret_cast<bf16*>(smem);                       // [kRows][qp]
-  bf16* kvs = qs + kRows * qp;                                    // [2][KT][kvp]: k | v
+  const int heads = cols / HD, warp = threadIdx.x >> 5, tq = lane_t();
+  const int rt = warp / heads, col = (warp - rt * heads) * HD;
+  const bool live = rt < row_tiles && r0 + kRows * rt < t;
+  const int qp = row_pitch(cols), kvp = row_pitch(2 * cols);
+  bf16* qs = reinterpret_cast<bf16*>(smem);                       // [16 row_tiles][qp]
+  bf16* kvs = qs + kRows * row_tiles * qp;                        // [2][KT][kvp]: k | v
   float* bs = reinterpret_cast<float*>(kvs + 2 * KT * kvp);       // [2][KT]
 
-  stage_rows(qs, qp, q, stride, r0, kRows, t, cols);
+  stage_rows(qs, qp, q, stride, r0, kRows * row_tiles, t, cols);
   stage_key_tile<KT>(kvs, bs, kvp, k, v, stride, bias, t, cols, 0, 0, weights);
   const int ntiles = (t + KT - 1) / KT;
   uint32_t qa[H::kA];
@@ -450,7 +469,7 @@ __device__ __forceinline__ void attend_rows(const bf16* q, const bf16* k, const 
     }
     __syncthreads();
     if (live) {
-      if (it == 0) load_a<HD>(qa, qs, qp, col);
+      if (it == 0) load_a<HD>(qa, qs + kRows * rt * qp, qp, col);
       const bf16* kt = kvs + buf * KT * kvp;
       const float* bt = bs + buf * KT;
       const int k0 = it * KT;
@@ -472,7 +491,7 @@ __device__ __forceinline__ void attend_rows(const bf16* q, const bf16* k, const 
         for (int nt = 0; nt < H::kN8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
-        weights.apply(buf, kc, s);
+        weights.apply(buf, rt, k0, kc, s);
         uint32_t pa[4];                                           // bf16: the A fragment of P V
         c_to_a(pa, s[0], s[1]);
         mma_rows<HD>(o, pa, kt + kc * kvp, kvp, cols + col);
@@ -485,7 +504,7 @@ __device__ __forceinline__ void attend_rows(const bf16* q, const bf16* k, const 
   l[1] = quad_sum(sm.l[1]);
   if (live) {
     const float scale[2] = {1.f / l[0], 1.f / l[1]};
-    store_rows<HD>(out + col, out_stride, r0, t, o, scale);
+    store_rows<HD>(out + col, out_stride, r0 + kRows * rt, t, o, scale);
   }
 }
 

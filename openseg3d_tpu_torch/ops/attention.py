@@ -19,8 +19,12 @@ Counterpart of ``openseg3d_tpu/ops/attention.py``. Three public functions:
   Function whose forward and backward launch the kernels of
   ``csrc/window_attention_train.cu`` (replacing the custom VJP
   ``window_attention_packed_train``: ``_kernel_packed_train`` and
-  ``_kernel_packed_bwd``); for a CPU tensor it runs
-  ``window_attention_packed_train_plain``, differentiated by autograd.
+  ``_kernel_packed_bwd``) through ``window_attention_train_forward`` and
+  ``window_attention_train_backward``; for a CPU tensor it runs
+  ``window_attention_packed_train_plain``, differentiated by autograd. The
+  two wrappers take a CPU tensor too and then run their plain versions
+  (``window_attention_train_forward_plain``, ``..._backward_plain``), the
+  kernels' interface on the CPU.
 
 The choice follows the tensor's device and nothing else, and a CUDA failure
 raises: there is no fallback.
@@ -29,12 +33,14 @@ Dropout mask. The TPU kernels seed the TPU's PRNG per (grid block, chunk);
 its bits cannot be reproduced here. Instead the keep decision of softmax
 weight (window n, head h, query i, key j) is a pure function of the int32
 seed and those four indices, a counter-based integer hash
-(``dropout_keep_mask``), so the backward regenerates the forward's mask
-exactly and the plain version computes the same mask with integer tensor
-arithmetic: kernel and plain version agree element for element at any rate.
-A weight is kept when its 32-bit hash is >= rate * 2**32, as in
-``_dropout_mask`` (``ops/attention.py:335-341``), and kept weights are scaled
-by 1 / (1 - rate).
+(``dropout_keep_mask``), and the plain version computes the same mask with
+integer tensor arithmetic: kernel and plain version agree element for
+element at any rate. A weight is kept when its 32-bit hash is >= rate *
+2**32, as in ``_dropout_mask`` (``ops/attention.py:335-341``), and kept
+weights are scaled by 1 / (1 - rate). The bf16 forward kernel stores the
+mask as it hashes it, one bit a weight (``pack_keep_bits``'s layout), and
+the bf16 backward reads those bits; the float32 kernels hash it where they
+need it and store nothing.
 """
 
 from __future__ import annotations
@@ -107,6 +113,43 @@ def dropout_keep_mask(seed: torch.Tensor, n: int, nhead: int, t: int,
     return mix32(ctr ^ key) >= dropout_threshold(drop_rate)
 
 
+def pack_keep_bits(keep: torch.Tensor) -> torch.Tensor:
+    """bool [N, H, T, T] -> uint32 [N, H, TT, TT, 8] with TT = ceil(T / 16),
+    the layout the bf16 train forward kernel writes: per 16 x 16 tile (rt,
+    kt) of (query, key), 8 words in the tensor cores' fragment layout, as a
+    warp's ballots give them: bit 4 g + t of word (2 nt + r) * 2 + x is
+    keep[n, h, 16 rt + g + 8 r, 16 kt + 8 nt + 2 t + x]. Rows and keys past
+    T are 0."""
+    n, h, t, _ = keep.shape
+    tt = -(-t // 16)
+    padded = torch.zeros(n, h, 16 * tt, 16 * tt, dtype=torch.int64, device=keep.device)
+    padded[:, :, :t, :t] = keep
+    # query 16 rt + 8 r + g, key 16 kt + 8 nt + 2 t + x -> [rt, kt, nt, r, x, g, t]
+    tiles = padded.reshape(n, h, tt, 2, 8, tt, 2, 4, 2).permute(0, 1, 2, 5, 6, 3, 8, 4, 7)
+    place = torch.ones(32, dtype=torch.int64, device=keep.device) << torch.arange(
+        32, device=keep.device)
+    words = (tiles.reshape(n, h, tt, tt, 8, 32) * place).sum(-1)
+    # to uint32 through int32 (two's complement): no uint32 arithmetic needed
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32).view(
+        torch.uint32)
+
+
+def unpack_keep_bits(bits: torch.Tensor, t: int) -> torch.Tensor:
+    """The inverse of ``pack_keep_bits``: uint32 [N, H, TT, TT, 8] -> bool
+    [N, H, T, T]."""
+    n, h, tt = bits.shape[:3]
+    words = bits.view(torch.int32).to(torch.int64) & _MASK32
+    b = (words[..., None] >> torch.arange(32, device=bits.device)) & 1
+    b = b.reshape(n, h, tt, tt, 2, 2, 2, 8, 4).permute(0, 1, 2, 5, 7, 3, 4, 8, 6)
+    return b.reshape(n, h, 16 * tt, 16 * tt)[:, :, :t, :t].bool()
+
+
+def keep_bits_shape(n: int, nhead: int, t: int) -> tuple:
+    """The shape of the keep bits of [n, t, 3C] packed rows and nhead heads."""
+    tt = -(-t // 16)
+    return n, nhead, tt, tt, 8
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -172,6 +215,68 @@ def window_attention_packed_train_plain(packed: torch.Tensor, bias: torch.Tensor
         with torch.no_grad():
             keep = dropout_keep_mask(seed, n, nhead, t, drop_rate)
     return _attention_plain(packed, bias, nhead, nw, keep, dropout_inv_keep(drop_rate))
+
+
+def _stats_plain(packed, bias, nhead):
+    """[N, H, T, 2] float32: per query row the softmax's max logit and sum
+    of exp(logit - max), as the train forward kernel writes them."""
+    n, t, c3 = packed.shape
+    c = c3 // 3
+    q, k = (x.float().reshape(n, t, nhead, c // nhead)
+            for x in (packed[..., :c], packed[..., c:2 * c]))
+    logits = torch.einsum('nthd,nshd->nhts', q, k) + bias.float()[:, None, None, :]
+    m = logits.amax(-1)
+    return torch.stack([m, torch.exp(logits - m[..., None]).sum(-1)], -1)
+
+
+def window_attention_train_forward_plain(packed, bias, seed, nw, nhead: int, drop_rate: float):
+    """Plain version of ``window_attention_train_forward``, its interface on
+    the CPU: (out, stats, bits). stats is (0, 1) on the windows past nw,
+    where the kernel computes nothing; bits are the packed keep mask
+    (``pack_keep_bits``) for bfloat16 at drop_rate > 0, zero past nw, else
+    None, as the kernels store them."""
+    out = window_attention_packed_train_plain(packed, bias, seed, nw, nhead, drop_rate)
+    n, t, _ = packed.shape
+    live = _live_windows(n, nw, packed.device)
+    stats = torch.where(live[:, None, None, None], _stats_plain(packed, bias, nhead),
+                        torch.tensor([0.0, 1.0], device=packed.device))
+    bits = None
+    if packed.dtype == torch.bfloat16 and drop_rate > 0.0:
+        keep = dropout_keep_mask(seed, n, nhead, t, drop_rate) & live[:, None, None, None]
+        bits = pack_keep_bits(keep)
+    return out, stats, bits
+
+
+def window_attention_train_backward_plain(packed, bias, seed, nw, out, stats, bits, gout,
+                                          nhead: int, drop_rate: float) -> torch.Tensor:
+    """Plain version of ``window_attention_train_backward``, its interface
+    on the CPU: dq|dk|dv [N, T, 3C] in packed's dtype, computed in float32
+    as the kernels compute them: P = exp(q k^T + bias - m) / l from the
+    forward's stats, the keep mask from the stored bits (else, at
+    drop_rate > 0, hashed from the seed, as the float32 kernels do),
+    D = dO . O from the forward's output, dS = P (Z dP / (1 - p) - D); zero
+    on the windows past nw."""
+    n, t, c3 = packed.shape
+    c = c3 // 3
+    hd = c // nhead
+    q, k, v = (x.float().reshape(n, t, nhead, hd) for x in packed.split(c, -1))
+    logits = torch.einsum('nthd,nshd->nhts', q, k) + bias.float()[:, None, None, :]
+    st = stats.float()
+    p = torch.exp(logits - st[..., :1]) / st[..., 1:]
+    zs = 1.0
+    if drop_rate > 0.0:
+        keep = unpack_keep_bits(bits, t) if bits is not None else \
+            dropout_keep_mask(seed, n, nhead, t, drop_rate)
+        zs = keep.float() * dropout_inv_keep(drop_rate)
+    g = gout.float().reshape(n, t, nhead, hd)
+    d = (g * out.float().reshape(n, t, nhead, hd)).sum(-1).permute(0, 2, 1)[..., None]
+    dv = torch.einsum('nhts,nthd->nshd', p * zs, g)
+    ds = p * (torch.einsum('nthd,nshd->nhts', g, v) * zs - d)
+    dq = torch.einsum('nhts,nshd->nthd', ds, k)
+    dk = torch.einsum('nhts,nthd->nshd', ds, q)
+    dpk = torch.cat([x.reshape(n, t, c) for x in (dq, dk, dv)], -1)
+    live = _live_windows(n, nw, packed.device)
+    return torch.where(live[:, None, None], dpk, 0).to(packed.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -319,72 +424,168 @@ def train_forward_bound(plain_out: torch.Tensor, packed: torch.Tensor, nhead: in
     return 2.0 ** -7 * plain_out.float().abs() + 2.0 ** -8 * dropout_inv_keep(drop_rate) * vmax
 
 
-def window_attention_train_forward(packed, bias, seed, nw, nhead: int, drop_rate: float):
-    """The train forward kernel (B2 forward). Returns (out [N, T, C] in
-    packed's dtype, stats [N, nhead, T, 2] float32 = per query row the
-    softmax's max logit and sum of exp(logit - max), the residual the
-    backward kernel needs). float32 runs FMA bodies, bfloat16 tensor cores
-    (within ``train_forward_bound`` of the plain version). ``.launches``
-    counts its launches."""
+# Block shapes of the bf16 train kernels, chosen by (head_dim, T) alone.
+# B2f: a block serves 64 query rows (4 row tiles of 16) of TRAIN_FWD_HEADS
+# (2) heads where T lies in TRAIN_FWD_ROWS64[head_dim] (lo, hi), else 16 rows
+# of all heads (the PR 4 block); B2b runs in one pass where T lies in
+# TRAIN_BWD_ONE_PASS[head_dim], else in two. The ranges come from chip_smoke
+# phase 3b, which times both choices at every main-path shape in one call
+# (PERF.md): at head_dim 6 and 12 the forward's hash, shared by a block's
+# heads, favours 8 heads a block over 64 rows (at head_dim 6 a 64-row block
+# of 8 warps cannot be had: its 2 heads' 12 columns are no 16-byte rows).
+TRAIN_FWD_ROWS64 = {6: None, 12: None, 24: (16, 800), 48: (16, 800)}
+TRAIN_BWD_ONE_PASS = {6: (1, 128), 12: (1, 256), 24: (1, 256), 48: (1, 256)}
+TRAIN_FWD_HEADS = 2                                # heads of a 64-row forward block
+_FWD_KEY_TILE = {16: {6: 64, 12: 64, 24: 32, 48: 16}, 64: {6: 64, 12: 64, 24: 32, 48: 32}}
+_BWD_KEY_TILES_PER_WARP = {6: 2, 12: 2, 24: 1, 48: 1}    # key_tiles_per_warp in the source
+_MAX_WARPS = 16
+_ONE_PASS_MAX_T = 256                                    # the one-pass block's shared memory
+
+
+def _in_range(t: int, bounds) -> bool:
+    return bounds is not None and bounds[0] <= t <= bounds[1]
+
+
+def _head_group(nhead: int, hd: int, most: int) -> int:
+    """The largest divisor of nhead that is at most `most` and whose
+    columns (heads x hd) are a multiple of 8, the kernels' 16-byte row
+    pieces; 0 if there is none."""
+    for h in range(min(most, nhead), 0, -1):
+        if nhead % h == 0 and h * hd % 8 == 0:
+            return h
+    return 0
+
+
+def train_forward_shape(t: int, hd: int, nhead: int, rows: int | None = None):
+    """(heads, row_tiles, key_tile) of the bf16 train forward's blocks: a
+    block serves `heads` heads and row_tiles x 16 query rows and streams
+    key_tile key rows a tile. rows: 64 or 16 query rows a block, None for
+    the table's choice."""
+    heads64 = _head_group(nhead, hd, TRAIN_FWD_HEADS)
+    if rows is None:
+        rows = 64 if heads64 and _in_range(t, TRAIN_FWD_ROWS64[hd]) else 16
+    if rows == 64 and heads64:
+        return heads64, min(4, -(-t // 16)), _FWD_KEY_TILE[64][hd]
+    if rows == 16:
+        return nhead, 1, _FWD_KEY_TILE[16][hd]
+    raise ValueError(f'no {rows}-row train forward block for head_dim {hd}, nhead {nhead}')
+
+
+def train_backward_shape(t: int, hd: int, nhead: int, one_pass: bool | None = None):
+    """(heads, warps a head) of the one-pass bf16 train backward's blocks,
+    or (0, 0) for the two-pass backward. one_pass: None for the table's
+    choice."""
+    warps = -(-(-(-t // 16)) // _BWD_KEY_TILES_PER_WARP[hd])
+    heads = _head_group(nhead, hd, _MAX_WARPS // warps) if t <= _ONE_PASS_MAX_T else 0
+    if one_pass is None:
+        one_pass = heads > 0 and _in_range(t, TRAIN_BWD_ONE_PASS[hd])
+    if not one_pass:
+        return 0, 0
+    if not heads:
+        raise ValueError(f'no one-pass train backward for T={t}, head_dim {hd}, nhead {nhead}')
+    return heads, warps
+
+
+def window_attention_train_forward(packed, bias, seed, nw, nhead: int, drop_rate: float, *,
+                                   rows: int | None = None):
+    """The train forward kernel (B2f). Returns (out [N, T, C] in packed's
+    dtype, stats [N, nhead, T, 2] float32 = per query row the softmax's max
+    logit and sum of exp(logit - max), bits): bits is uint32
+    ``keep_bits_shape``, the keep mask in ``pack_keep_bits``' layout, written for
+    the windows below nw (the rest is not written), for bfloat16 at
+    drop_rate > 0, else None. float32 runs FMA bodies, bfloat16 tensor
+    cores (within ``train_forward_bound`` of the plain version) with the
+    block shape ``train_forward_shape`` gives (`rows` overrides the table:
+    chip_smoke times both shapes). ``.launches`` counts its launches. On a
+    CPU tensor: ``window_attention_train_forward_plain``, not counted."""
+    if packed.device.type == 'cpu':
+        return window_attention_train_forward_plain(packed, bias, seed, nw, nhead, drop_rate)
     _check_cuda_args(packed, bias, nhead, nw, seed)
     lib = _build.load('window_attention_train')
     fn = lib.window_attention_train_forward
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_uint, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     n, t, c3 = packed.shape
-    out = torch.empty((n, t, c3 // 3), dtype=packed.dtype, device=packed.device)
-    stats = torch.empty((n, nhead, t, 2), dtype=torch.float32, device=packed.device)
+    c = c3 // 3
+    dev = packed.device
+    out = torch.empty((n, t, c), dtype=packed.dtype, device=dev)
+    stats = torch.empty((n, nhead, t, 2), dtype=torch.float32, device=dev)
+    bf16 = packed.dtype == torch.bfloat16
+    bits = torch.empty(keep_bits_shape(n, nhead, t), dtype=torch.uint32, device=dev) \
+        if bf16 and drop_rate > 0.0 else None
     if n == 0 or t == 0:
-        return out, stats
-    if packed.dtype == torch.bfloat16:
+        return out, stats, bits
+    heads = row_tiles = key_tile = 0
+    if bf16:
         _check_mma_args(nhead, packed=packed, out=out)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        heads, row_tiles, key_tile = train_forward_shape(t, c // nhead, nhead, rows)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(packed.data_ptr(), bias.data_ptr(), nw.data_ptr(), seed.data_ptr(),
-                out.data_ptr(), stats.data_ptr(), n, t, c3 // 3, nhead, n // nw.shape[0],
-                dropout_threshold(drop_rate), dropout_inv_keep(drop_rate),
-                _dtype_code(packed), stream)
+                out.data_ptr(), stats.data_ptr(), 0 if bits is None else bits.data_ptr(),
+                n, t, c, nhead, n // nw.shape[0], dropout_threshold(drop_rate),
+                dropout_inv_keep(drop_rate), _dtype_code(packed), heads, row_tiles, key_tile,
+                stream)
     _raise_on_error(lib, rc, 'window_attention_train_forward',
                     'window_attention_train_error_string')
     window_attention_train_forward.launches += 1
-    return out, stats
+    return out, stats, bits
 
 
-def window_attention_train_backward(packed, bias, seed, nw, out, stats, gout,
-                                    nhead: int, drop_rate: float) -> torch.Tensor:
-    """The train backward kernels (B2 backward: a dq pass, then a dk/dv
-    pass; float32 FMA bodies, bfloat16 tensor cores). out and stats are the
+def window_attention_train_backward(packed, bias, seed, nw, out, stats, bits, gout,
+                                    nhead: int, drop_rate: float, *,
+                                    one_pass: bool | None = None) -> torch.Tensor:
+    """The train backward kernels (B2b). out, stats and bits are the
     forward's; gout [N, T, C] is the cotangent of out. Returns dpacked
     [N, T, 3C] = dq|dk|dv in packed's dtype, zero for windows past nw.
-    ``.launches`` counts one per backward."""
+    float32: FMA bodies in two passes (dq, then dk and dv), the mask hashed
+    from the seed. bfloat16: tensor cores, the mask read from the stored
+    bits, in one pass or two as ``train_backward_shape`` gives (`one_pass`
+    overrides the table: chip_smoke times both), no atomics, the same bits
+    from run to run. ``.launches`` counts one per backward, however many
+    kernels it runs. On a CPU tensor:
+    ``window_attention_train_backward_plain``, not counted."""
+    if packed.device.type == 'cpu':
+        return window_attention_train_backward_plain(packed, bias, seed, nw, out, stats, bits,
+                                                     gout, nhead, drop_rate)
     _check_cuda_args(packed, bias, nhead, nw, seed)
     n, t, c3 = packed.shape
-    for name, x, shape, dtype in (('out', out, (n, t, c3 // 3), packed.dtype),
-                                  ('gout', gout, (n, t, c3 // 3), packed.dtype),
-                                  ('stats', stats, (n, nhead, t, 2), torch.float32)):
-        if tuple(x.shape) != shape or x.dtype != dtype or x.device != packed.device \
-                or not x.is_contiguous():
+    c = c3 // 3
+    bf16 = packed.dtype == torch.bfloat16
+    want = [('out', out, (n, t, c), packed.dtype), ('gout', gout, (n, t, c), packed.dtype),
+            ('stats', stats, (n, nhead, t, 2), torch.float32)]
+    if bf16 and drop_rate > 0.0:
+        want.append(('bits', bits, keep_bits_shape(n, nhead, t), torch.uint32))
+    elif bits is not None:
+        raise ValueError('bits are stored only by the bfloat16 forward at drop_rate > 0')
+    for name, x, shape, dtype in want:
+        if x is None or tuple(x.shape) != shape or x.dtype != dtype \
+                or x.device != packed.device or not x.is_contiguous():
+            got = 'None' if x is None else f'{x.dtype} {tuple(x.shape)} on {x.device}'
             raise ValueError(f'{name} must be a contiguous {dtype} {shape} on '
-                             f'{packed.device}, got {x.dtype} {tuple(x.shape)} on {x.device}')
+                             f'{packed.device}, got {got}')
     lib = _build.load('window_attention_train')
     fn = lib.window_attention_train_backward
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                   + [ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.c_uint, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     dpacked = torch.empty_like(packed)
-    delta = torch.empty((n, nhead, t), dtype=torch.float32, device=packed.device)
     if n == 0 or t == 0:
         return dpacked
-    if packed.dtype == torch.bfloat16:
+    heads = warps = 0
+    if bf16:
         _check_mma_args(nhead, packed=packed, out=out, gout=gout, dpacked=dpacked)
+        heads, warps = train_backward_shape(t, c // nhead, nhead, one_pass)
+    delta = None if heads else torch.empty((n, nhead, t), dtype=torch.float32,
+                                           device=packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         rc = fn(packed.data_ptr(), bias.data_ptr(), nw.data_ptr(), seed.data_ptr(),
-                out.data_ptr(), gout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
-                dpacked.data_ptr(), n, t, c3 // 3, nhead, n // nw.shape[0],
-                dropout_threshold(drop_rate), dropout_inv_keep(drop_rate),
-                _dtype_code(packed), stream)
+                0 if bits is None else bits.data_ptr(), out.data_ptr(), gout.data_ptr(),
+                stats.data_ptr(), 0 if delta is None else delta.data_ptr(), dpacked.data_ptr(),
+                n, t, c, nhead, n // nw.shape[0], dropout_threshold(drop_rate),
+                dropout_inv_keep(drop_rate), _dtype_code(packed), heads, warps, stream)
     _raise_on_error(lib, rc, 'window_attention_train_backward',
                     'window_attention_train_error_string')
     window_attention_train_backward.launches += 1
@@ -393,19 +594,21 @@ def window_attention_train_backward(packed, bias, seed, nw, out, stats, gout,
 
 class _WindowAttentionTrain(torch.autograd.Function):
     """The CUDA train attention as an autograd Function: forward and
-    backward kernels, residuals (packed, bias, seed, nw, out, stats)."""
+    backward kernels, residuals (packed, bias, seed, nw, out, stats and the
+    keep bits, None where the forward stores none)."""
 
     @staticmethod
     def forward(ctx, packed, bias, seed, nw, nhead, drop_rate):
-        out, stats = window_attention_train_forward(packed, bias, seed, nw, nhead, drop_rate)
-        ctx.save_for_backward(packed, bias, seed, nw, out, stats)
+        out, stats, bits = window_attention_train_forward(packed, bias, seed, nw, nhead,
+                                                          drop_rate)
+        ctx.save_for_backward(packed, bias, seed, nw, out, stats, bits)
         ctx.nhead, ctx.drop_rate = nhead, drop_rate
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        packed, bias, seed, nw, out, stats = ctx.saved_tensors
-        dpacked = window_attention_train_backward(packed, bias, seed, nw, out, stats,
+        packed, bias, seed, nw, out, stats, bits = ctx.saved_tensors
+        dpacked = window_attention_train_backward(packed, bias, seed, nw, out, stats, bits,
                                                   gout.contiguous(), ctx.nhead, ctx.drop_rate)
         return dpacked, None, None, None, None, None
 

@@ -60,15 +60,16 @@ BUCKETS = (
 
 
 def kernel_name(mangled: str) -> str:
-    """'name<template int>' of a mangled kernel whose name ends in _kernel:
+    """'name<template ints>' of a mangled kernel whose name ends in _kernel:
     an Itanium-mangled identifier is its length in digits, then the name."""
     for run in re.finditer(r'\d+', mangled):
         for start in range(run.start(), run.end()):
             end = run.end() + int(mangled[start:run.end()])
             ident = mangled[run.end():end]
             if ident.endswith('_kernel'):
-                arg = re.match(r'ILi(\d+)E', mangled[end:])
-                return f'{ident}<{arg.group(1)}>' if arg else ident
+                args = re.match(r'I((?:Li\d+E)+)E', mangled[end:])
+                return f'{ident}<{", ".join(re.findall(r"Li(\d+)E", args.group(1)))}>' \
+                    if args else ident
     return mangled
 
 

@@ -201,6 +201,8 @@ def test_profiling_buckets_and_attributes_a_hand_made_trace():
         '(no range)': 0.25 + 0.1 + 0.05 + 0.1 + 0.01})
     assert profiling.kernel_name('_Z27window_attention_mma_kernelILi24EEvPK13__nv_bfloat16') \
         == 'window_attention_mma_kernel<24>'
+    assert profiling.kernel_name('_Z37window_attention_train_fwd_mma_kernelILi48ELi32EEvPK13__'
+                                 'nv_bfloat16') == 'window_attention_train_fwd_mma_kernel<48, 32>'
 
 
 def test_profile_step_on_cpu_gives_a_by_module_table(tmp_path, capsys):

@@ -18,16 +18,19 @@ window and head (p = 0 for the eval kernels). Train gradients, each of dq, dk an
 largest magnitude: float32 within 1e-4 (sums of T products); bfloat16 within
 4 bf16 ulps (the kernel rounds P and dS to bf16 before their products, and
 its residual O). The dropout mask is the same hash in both, so these hold at
-drop rate 0.1 as at 0. 1-NN: indices equal. Weight-gradient product:
+drop rate 0.1 as at 0; the bits the bf16 forward stores equal the plain
+packer's to the bit, and the bf16 backward (no atomics) gives the same bits
+twice. 1-NN: indices equal. Weight-gradient product:
 within 1e-5 of the largest element of the exact (float64) sum.
 """
 
 import pytest
 import torch
 
-from openseg3d_tpu_torch.ops.attention import (attention_group, fused_window_attention,
-                                               fused_window_attention_plain,
-                                               train_forward_bound,
+from openseg3d_tpu_torch.ops.attention import (attention_group, dropout_keep_mask,
+                                               fused_window_attention,
+                                               fused_window_attention_plain, pack_keep_bits,
+                                               train_backward_shape, train_forward_bound,
                                                window_attention_packed,
                                                window_attention_packed_plain,
                                                window_attention_packed_train,
@@ -213,13 +216,16 @@ def test_eval_kernel_body_follows_dtype_width_and_alignment(cuda):
     _check_unpacked(q_off, k, v, b, NHEAD)
 
 
-def train_attention_check(packed, bias, seed, nw, nhead, rate, gen):
+def train_attention_check(packed, bias, seed, nw, nhead, rate, gen, rows=None, one_pass=None):
     """B2 forward and backward against the plain version's forward and
-    autograd gradient for a random cotangent that is zero past nw. Returns
+    autograd gradient for a random cotangent that is zero past nw (rows and
+    one_pass: the bf16 block shapes, None for the tables'). Returns
     (|out err|, the largest of dq, dk and dv's max |grad err| / max |plain
-    grad|, plain out, kernel out, kernel dpacked)."""
+    grad|, plain out, kernel out, kernel dpacked, bits, the backward's
+    arguments)."""
     n, t, c3 = packed.shape
-    out, stats = window_attention_train_forward(packed, bias, seed, nw, nhead, rate)
+    out, stats, bits = window_attention_train_forward(packed, bias, seed, nw, nhead, rate,
+                                                      rows=rows)
     x = packed.detach().clone().requires_grad_(True)
     want = window_attention_packed_train_plain(x, bias, seed, nw, nhead, rate)
     wps = n // nw.shape[0]
@@ -227,13 +233,14 @@ def train_attention_check(packed, bias, seed, nw, nhead, rate, gen):
     gout = torch.randn(n, t, c3 // 3, generator=gen, device=packed.device)
     gout = torch.where(live[:, None, None], gout, 0).to(packed.dtype)
     want.backward(gout)
-    dpacked = window_attention_train_backward(packed, bias, seed, nw, out, stats, gout,
-                                              nhead, rate)
+    bwd_args = (packed, bias, seed, nw, out, stats, bits, gout, nhead, rate)
+    dpacked = window_attention_train_backward(*bwd_args, one_pass=one_pass)
     torch.cuda.synchronize()
     g_rel = max(float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
                 for got, ref in zip(dpacked.float().split(c3 // 3, -1),
                                     x.grad.float().split(c3 // 3, -1)))
-    return (out.float() - want.detach().float()).abs(), g_rel, want.detach().float(), out, dpacked
+    return ((out.float() - want.detach().float()).abs(), g_rel, want.detach().float(), out,
+            dpacked, bits, bwd_args)
 
 
 @pytest.mark.cuda
@@ -248,8 +255,8 @@ def test_train_kernels_match_plain(cuda, t, c, dtype, rate):
     gen = torch.Generator(device=cuda).manual_seed(1)
     before = (window_attention_train_forward.launches,
               window_attention_train_backward.launches)
-    err, g_rel, want, out, dpacked = train_attention_check(packed, bias, seed, nw, NHEAD,
-                                                           rate, gen)
+    err, g_rel, want, out, dpacked, _, _ = train_attention_check(packed, bias, seed, nw, NHEAD,
+                                                                 rate, gen)
     assert (window_attention_train_forward.launches,
             window_attention_train_backward.launches) == (before[0] + 1, before[1] + 1)
     assert out.dtype == dtype and dpacked.dtype == dtype and dpacked.shape == packed.shape
@@ -265,6 +272,35 @@ def test_train_kernels_match_plain(cuda, t, c, dtype, rate):
         assert not out[s * wps + count:(s + 1) * wps].any()
         assert not dpacked[s * wps + count:(s + 1) * wps].any()
     assert bool(torch.isfinite(dpacked.float()).all())  # incl. the fully padded window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('t,c', [(16, 48), (64, 96), (100, 192), (256, 192), (128, 384),
+                                 (512, 96)])
+def test_train_bf16_block_shapes_and_stored_bits(cuda, t, c):
+    """bf16 at rate 0.1, every block shape of both kernels (forward 16 and,
+    above head_dim 6, 64 rows; backward in one pass where the table takes
+    it, and in two): the
+    stored bits equal the plain packer's on the live windows, forward and
+    gradients within their bounds of the plain version, and two backward
+    calls bit-equal."""
+    packed, bias, nw = _packed_case(cuda, 12, t, c, [4, 5], torch.bfloat16)
+    seed = torch.tensor([99], dtype=torch.int32, device=cuda)
+    live = (torch.arange(12, device=cuda) % 6) < nw.repeat_interleave(6)
+    keep = dropout_keep_mask(seed, 12, NHEAD, t, 0.1) & live[:, None, None, None]
+    passes = (True, False) if train_backward_shape(t, c // NHEAD, NHEAD)[0] else (False,)
+    for rows in (16, 64) if c // NHEAD > 6 else (16,):   # no 64-row block at head_dim 6
+        for one_pass in passes:
+            gen = torch.Generator(device=cuda).manual_seed(3)
+            err, g_rel, want, out, dpacked, bits, args = train_attention_check(
+                packed, bias, seed, nw, NHEAD, 0.1, gen, rows, one_pass)
+            stored = torch.where(live[:, None, None, None, None], bits.view(torch.int32), 0)
+            assert torch.equal(stored, pack_keep_bits(keep).view(torch.int32)), (rows, one_pass)
+            assert bool((err <= train_forward_bound(want, packed, NHEAD, 0.1)).all()), \
+                (rows, one_pass, float(err.max()))
+            assert g_rel <= 4 * 2.0 ** -7, (rows, one_pass, g_rel)
+            again = window_attention_train_backward(*args, one_pass=one_pass)
+            assert torch.equal(again.view(torch.int16), dpacked.view(torch.int16)), one_pass
 
 
 @pytest.mark.cuda
