@@ -17,18 +17,21 @@ Phases (each asserts or raises; nothing is caught):
   2. build: compiles every kernel source of openseg3d_tpu_torch/csrc/ with
      nvcc for sm_90a, one nvcc process each, all started together; prints
      each kernel's registers and spills (ptxas); the bf16 tensor-core
-     kernels (*_mma_kernel, 21: the eval kernel's 4 head widths, the train
-     forward's 5 (head width, key tile) pairs, the one-pass backward's 4
-     and the two-pass backward's 2 x 4) must not spill;
+     kernels (*_mma_kernel, 22: the eval kernel's and the train forward's 5
+     (head width, key tile) pairs each, the one-pass backward's 4 and the
+     two-pass backward's 2 x 4) must not spill;
   3. kernel vs plain: the eval window-attention kernel (B1) against its plain
      PyTorch version at every (T, C) the default config's window levels give
      the 4 stages, in float32 (max abs error <= 1e-5) and bfloat16 (within
      train_forward_bound at rate 0, 2^-7 |plain| + 2^-8 max|v|: the
      tensor-core kernel rounds the softmax weights to bf16, as the TPU kernel
      does), with a fully padded window (zero) and a true window count below
-     the capacity (zeros past it); then per shape in bf16 the device time of
-     B1, of SDPA on the live windows and of the plain version, and the
-     bound;
+     the capacity (zeros past it); bfloat16 in every block shape the
+     kernel takes there (ops/attention.eval_launch_shapes: 16-, 32- and
+     64-row blocks); then per shape in bf16 the device time of B1 in each
+     block shape (the table's, ops/attention.eval_rows, marked), of SDPA on
+     the live windows and of the plain version, and the bound, and the sums
+     over shapes in the table's shape and in the 16-row block;
   3b. train kernels vs plain: the train attention forward (B2f) and backward
      (B2b) against the plain version and its autograd gradient at the same
      (T, C), float32 and bfloat16, drop rate 0 and 0.1 (the same hash mask on
@@ -63,10 +66,11 @@ Phases (each asserts or raises; nothing is caught):
      level's window capacity rounded to attention_group, in float32 (max abs
      error <= 1e-5 x max(1, largest output)) and bfloat16 (train_forward_bound
      at rate 0), fully padded windows held to the mean of their own v rows
-     (the JAX oracle's result); then B4's own path: one bf16 call of the
-     public op per shape with its counter set to 0 before and read after;
-     per shape the device time of kernel, plain version and
-     scaled_dot_product_attention, and the bound;
+     (the JAX oracle's result), in bfloat16 in every block shape as in 3;
+     then B4's own path: one bf16 call of the public op per shape with its
+     counter set to 0 before and read after; per shape the device time of
+     the kernel in each block shape, of the plain version and of scaled_dot_product_attention, and
+     the bound;
   4. eval slice: the full-width, full-capacity bfloat16 Segformer eval step
      (configs/waymo_one_sweep.yaml, seeded random weights) on one bench.py
      frame; checks the kernel's launch count against the config, finite
@@ -76,7 +80,12 @@ Phases (each asserts or raises; nothing is caught):
      time on the main path, the plain attention's, and the device-busy share
      of that forward's wall time; the bf16 forward launches the tensor-core
      eval kernel (window_attention_mma_kernel) once per attention call and
-     the FMA body (window_attention_kernel) never;
+     the FMA body (window_attention_kernel) never; then B1 on the frame's
+     captured inputs per level (the first call of each level shape; its live
+     windows printed), in the table's block shape and in the 16-row block,
+     summed over the levels' calls beside the profiled B1 ms; the same on
+     tools.eval's inputs (its first synthetic frame alone, and that frame's
+     first TTA group of 2 variants at the default --tta_batch 2);
   4b. train slice: the full-width, full-capacity bfloat16 train step (the
      config's SGD with momentum and weight decay, warmup-poly schedule,
      OHEM-CE + Lovasz losses on point, voxel and 0.4x aux logits, attention
@@ -230,8 +239,9 @@ Phases (each asserts or raises; nothing is caught):
      2 bench frames on the card, each stage's voxel count equal to
      verify_capacities' numpy count on the same frames; verify_capacities
      at the default RUNTIME on the 4 bench frames: zero drops.
-The line before the last is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1.
+The run's seconds in all come before the kernels' JSON summary, the line
+before the last; the last line is {"ok": true, "device": {...}}. Without a
+CUDA device the script exits 1.
 Every time printed comes with the card's name and power limit.
 """
 
@@ -292,21 +302,28 @@ def device_ms(fn, iters: int = 5) -> float:
     copies and memsets it launches (torch.profiler), summed over `iters`
     calls and divided by them. Unlike cuda_ms, host time between launches
     is not counted: a call whose host side (autograd's backward, say)
-    outlasts its kernels is timed by its kernels. A trace that holds no
-    device event at all (the profiler sometimes delivers none for a short
-    run) is taken again; after three such traces the call is timed by CUDA
-    events instead (cuda_ms), and a line says so."""
+    outlasts its kernels is timed by its kernels. One call is traced first
+    to count its device events; a trace of the `iters` calls is taken only
+    if it holds exactly `iters` times that count (the profiler sometimes
+    delivers part of a short run), else both are taken again; after three
+    such tries the call is timed by CUDA events instead (cuda_ms), and a line
+    says so."""
     import torch
+
+    def device_events(calls):
+        torch.cuda.synchronize()
+        events, _ = trace(lambda: [fn() for _ in range(calls)])
+        return [e['dur'] for e in events
+                if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
+
     fn()
     for _ in range(3):
-        torch.cuda.synchronize()
-        events, _ = trace(lambda: [fn() for _ in range(iters)])
-        durs = [e['dur'] for e in events
-                if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
-        if durs:
+        per_call = len(device_events(1))
+        durs = device_events(iters)
+        if per_call and len(durs) == iters * per_call:
             return sum(durs) / 1e3 / iters
     ms = cuda_ms(fn, iters)
-    print(f'  (three traces held no device event: {ms:.4f} ms by CUDA events)', flush=True)
+    print(f'  (three traces held no whole calls: {ms:.4f} ms by CUDA events)', flush=True)
     return ms
 
 
@@ -358,60 +375,97 @@ def ptxas_usage(log: str):
     return rows
 
 
-def check_kernel(levels, channels, depths):
-    """Phase 3. Returns (kernel ms, plain ms, max float32 error); the times
-    are bf16 device times summed over shapes, depth x the time of one call
-    at the level's window capacity. Prints per shape B1's, SDPA's (live
-    windows) and the plain version's device ms and the bound."""
+def check_launch_shapes(fn, want, lim, t, hd, where, extra_check=None):
+    """The bf16 eval kernel's launch fn(rows=rows) (the private _launch_cuda
+    or _launch_unpacked, which force a block shape) in every block shape at
+    T and head_dim hd (eval_launch_shapes: 16, 32 or 64 query rows): within
+    lim of the plain output `want`, extra_check(out) where given. Returns
+    ({rows: device ms a call}, worst err / bound)."""
     import torch
-    from openseg3d_tpu_torch.ops.attention import (train_forward_bound,
+    from openseg3d_tpu_torch.ops.attention import eval_launch_shapes
+    times, worst = {}, 0.0
+    for rows in eval_launch_shapes(t, hd, 8):
+        call = functools.partial(fn, rows=rows)
+        got = call()
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        assert bool((err <= lim).all()), (where, rows, float(err.max()))
+        worst = max(worst, float((err / lim.clamp(min=1e-30)).max()))
+        if extra_check is not None:
+            extra_check(got, (where, rows))
+        times[rows] = device_ms(call, 10)
+    return times, worst
+
+
+def shape_times(times, choice):
+    """'16 0.0375  32 0.0341*  ...': device ms a call in blocks of each
+    query row count, the table's marked *."""
+    return '  '.join(f'{r} {ms:.4f}' + '*' * (r == choice) for r, ms in times.items())
+
+
+def check_kernel(levels, channels, depths):
+    """Phase 3. Returns (kernel ms, the 16-row block's ms, plain ms, max
+    float32 error); the times are bf16 device times summed over shapes,
+    depth x the time of one call at the level's window capacity, the kernel
+    in the table's block shape. At every shape: float32 within 1e-5; in
+    bf16 every block shape (check_launch_shapes) within the bound, windows
+    past nw and the fully padded window zero. Prints per shape every block
+    shape's device ms, SDPA's (live windows), the plain version's and the
+    bound."""
+    import torch
+    from openseg3d_tpu_torch.ops.attention import (_launch_cuda, eval_rows,
+                                                   train_forward_bound,
                                                    window_attention_packed,
                                                    window_attention_packed_plain)
     gen = torch.Generator(device='cuda').manual_seed(0)
-    fwd_ms = fwd_plain_ms = 0.0
+    fwd_ms = fwd16_ms = fwd_plain_ms = 0.0
     max_err32, rows = 0.0, []
-    print('stage   T    C     W    nw  err_f32   err_bf16  bf16 err/bound')
+    print('stage   T    C     W    nw  err_f32   err_bf16/bound (worst block shape)')
     for s, stage_levels in enumerate(levels):
         c = channels[s]
         for lv in stage_levels:
             t, n = lv.max_tokens, lv.num_windows
             nw = max(1, n - max(1, n // 4))
-            errs = {}
-            for dtype in (torch.float32, torch.bfloat16):
-                args = attention_case(gen, n, t, c, nw, dtype)
-                got = window_attention_packed(*args[:2], 8, args[2]).float()
-                want = window_attention_packed_plain(*args[:2], 8, args[2]).float()
-                torch.cuda.synchronize()
-                err = (got - want).abs()
-                errs[dtype] = float(err.max())
-                if dtype == torch.float32:
-                    assert errs[dtype] <= 1e-5, (s, t, c, errs[dtype])
-                else:
-                    lim = train_forward_bound(want, args[0], 8, 0.0)
-                    assert bool((err <= lim).all()), (s, t, c, errs[dtype])
-                    rel = float((err / lim.clamp(min=1e-30)).max())
-                assert not got[nw:].any(), (s, t, c, dtype)           # windows past nw
-                assert n <= 2 or not got[1].any(), (s, t, c, dtype)   # fully padded: v = 0
-            # the production dtype (bf16): device times, SDPA on the live windows
-            packed, bias, nwt = args
-            k_fn = functools.partial(window_attention_packed, packed, bias, 8, nwt)
-            p_fn = functools.partial(window_attention_packed_plain, packed, bias, 8, nwt)
-            kms, pms = device_ms(k_fn, 10), device_ms(p_fn, 3)
+            packed, bias, nwt = attention_case(gen, n, t, c, nw, torch.float32)
+            got = window_attention_packed(packed, bias, 8, nwt).float()
+            want = window_attention_packed_plain(packed, bias, 8, nwt).float()
+            torch.cuda.synchronize()
+            err32 = float((got - want).abs().max())
+            assert err32 <= 1e-5, (s, t, c, err32)
+            assert not got[nw:].any() and (n <= 2 or not got[1].any()), (s, t, c)
+
+            def zeros(out, where):
+                assert not out[nw:].any(), where                     # windows past nw
+                assert n <= 2 or not out[1].any(), where             # fully padded: v = 0
+
+            # bf16, the production dtype: every block shape, SDPA on the live windows
+            packed, bias, nwt = attention_case(gen, n, t, c, nw, torch.bfloat16)
+            want = window_attention_packed_plain(packed, bias, 8, nwt).float()
+            lim = train_forward_bound(want, packed, 8, 0.0)
+            times, rel = check_launch_shapes(
+                functools.partial(_launch_cuda, packed, bias, 8, nwt), want, lim,
+                t, c // 8, (s + 1, t, c), zeros)
+            choice = eval_rows(t, c // 8)
+            pms = device_ms(functools.partial(window_attention_packed_plain, packed, bias, 8,
+                                              nwt), 3)
             q, k, v = (y.contiguous() for y in packed[:nw].split(c, dim=-1))
             lms = sdpa_ms(q, k, v, bias[:nw], iters=10)
             bms, _ = attention_bound(nw, t, c, 2)
-            rows.append((s + 1, t, c, nw, kms, lms, bms, pms))
-            max_err32 = max(max_err32, errs[torch.float32])
-            fwd_ms += depths[s] * kms
+            rows.append((s + 1, t, c, nw, shape_times(times, choice), lms, bms, pms))
+            max_err32 = max(max_err32, err32)
+            fwd_ms += depths[s] * times[choice]
+            fwd16_ms += depths[s] * times[16]
             fwd_plain_ms += depths[s] * pms
-            print(f'{s + 1:5d} {t:4d} {c:4d} {n:5d} {nw:5d}  {errs[torch.float32]:.2e}  '
-                  f'{errs[torch.bfloat16]:.2e}  {rel:.3f}', flush=True)
-    print('B1 per shape, bf16 (device ms per call; B1 and plain at the window capacity, SDPA '
-          'and the bound on the live windows): B1, SDPA, bound, plain')
+            print(f'{s + 1:5d} {t:4d} {c:4d} {n:5d} {nw:5d}  {err32:.2e}  {rel:.3f}', flush=True)
+    print('B1 per shape, bf16 (device ms per call at the window capacity, in blocks of each '
+          'query row count, * the table\'s; SDPA and the bound on the live windows): '
+          'B1, SDPA, bound, plain')
     for row in rows:
-        print('  st {} T {:4d} C {:4d} nw {:5d}: B1 {:.4f}  SDPA {:.4f}  bound {:.5f}  '
+        print('  st {} T {:4d} C {:4d} nw {:5d}: B1 {}  SDPA {:.4f}  bound {:.5f}  '
               'plain {:.4f}'.format(*row), flush=True)
-    return fwd_ms, fwd_plain_ms, max_err32
+    print('bf16, every shape: each block shape within the bound, windows past nw zero',
+          flush=True)
+    return fwd_ms, fwd16_ms, fwd_plain_ms, max_err32
 
 
 def live_cotangent(gen, n, t, c, nw, dtype):
@@ -710,10 +764,13 @@ def unpacked_case(gen, n, t, c, dtype, nhead=8):
 
 def check_unpacked(levels, channels):
     """Phase 3d. Returns a dict: max float32 error, B4's launches on its own
-    path (one bf16 call per shape), and over the shapes the sums of kernel,
-    plain and SDPA ms and of the bound."""
+    path (one bf16 call per shape), and over the shapes the sums of kernel
+    (the table's block shape and the 16-row block), plain and SDPA ms and of
+    the bound. In bf16 every block shape is held to the bound and its fully
+    padded windows to the mean of their own v rows (check_launch_shapes)."""
     import torch
-    from openseg3d_tpu_torch.ops.attention import (attention_group, fused_window_attention,
+    from openseg3d_tpu_torch.ops.attention import (_launch_unpacked, attention_group,
+                                                   eval_rows, fused_window_attention,
                                                    fused_window_attention_plain,
                                                    train_forward_bound)
     gen = torch.Generator(device='cuda').manual_seed(4)
@@ -725,38 +782,43 @@ def check_unpacked(levels, channels):
             shapes.append((str(s + 1), t, c, -(-lv.num_windows // g) * g))
     shapes.append(('JAX test', 800, 384, 2 * attention_group(800, 384, 4)))
     max_err32, cases, rows = 0.0, [], []
-    print('   stage    T    C     N  err_f32   err_bf16  padded  kernel_ms  plain_ms  '
-          'sdpa_ms  bound_ms  (bf16 device ms per call)')
+    print('   stage    T    C     N  err_f32   err_bf16/bound  padded  (bf16 device ms per '
+          'call by query rows a block, * the table\'s)  plain_ms  sdpa_ms  bound_ms')
     for st, t, c, n in shapes:
-        errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, bias = unpacked_case(gen, n, t, c, dtype)
-            got = fused_window_attention(q, k, v, bias, 8).float()
-            want = fused_window_attention_plain(q, k, v, bias, 8).float()
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            # fully padded windows: the oracle's own-window mean of v
-            pad = ~(bias == 0).any(dim=1)
-            mean = v[pad].float().mean(dim=1, keepdim=True)
-            pad_err = (got[pad] - mean).abs()
-            if dtype == torch.float32:
-                tol = 1e-5 * max(1.0, float(want.abs().max()))
-                assert bool((err <= tol).all() and (pad_err <= tol).all()), (st, t, c)
-            else:
-                lim = train_forward_bound(want, torch.cat([q, k, v], -1), 8, 0.0)
-                assert bool((err <= lim).all()), (st, t, c)
-                assert bool((pad_err <= lim[pad] + 1e-6).all()), (st, t, c)
-            errs[dtype] = float(err.max())
-        max_err32 = max(max_err32, errs[torch.float32])
+        q, k, v, bias = unpacked_case(gen, n, t, c, torch.float32)
+        got = fused_window_attention(q, k, v, bias, 8).float()
+        want = fused_window_attention_plain(q, k, v, bias, 8).float()
+        torch.cuda.synchronize()
+        # fully padded windows: the oracle's own-window mean of v
+        pad = ~(bias == 0).any(dim=1)
+        mean = v[pad].float().mean(dim=1, keepdim=True)
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        err = (got - want).abs()
+        assert bool((err <= tol).all() and ((got[pad] - mean).abs() <= tol).all()), (st, t, c)
+        err32 = float(err.max())
+
+        q, k, v, bias = unpacked_case(gen, n, t, c, torch.bfloat16)
+        want = fused_window_attention_plain(q, k, v, bias, 8).float()
+        lim = train_forward_bound(want, torch.cat([q, k, v], -1), 8, 0.0)
+        pad = ~(bias == 0).any(dim=1)
+        mean = v[pad].float().mean(dim=1, keepdim=True)
+
+        def padded_mean(out, where):
+            assert bool(((out[pad].float() - mean).abs() <= lim[pad] + 1e-6).all()), where
+
+        times, rel = check_launch_shapes(
+            functools.partial(_launch_unpacked, q, k, v, bias, 8), want, lim, t, c // 8,
+            (st, t, c), padded_mean)
+        choice = eval_rows(t, c // 8)
+        max_err32 = max(max_err32, err32)
         cases.append((q, k, v, bias))
-        kms = device_ms(functools.partial(fused_window_attention, q, k, v, bias, 8), 10)
         pms = device_ms(functools.partial(fused_window_attention_plain, q, k, v, bias, 8), 3)
         lms = sdpa_ms(q, k, v, bias, iters=10)
         bms, by = attention_bound(n, t, c, 2)
-        rows.append((kms, pms, lms, bms, bms if by == 'bytes' else 0.0))
-        print(f'{st:>8} {t:4d} {c:4d} {n:5d}  {errs[torch.float32]:.2e}  '
-              f'{errs[torch.bfloat16]:.2e}  {int(pad.sum()):5d} ok  {kms:9.4f} {pms:9.4f} '
-              f'{lms:8.4f} {bms:9.5f}', flush=True)
+        rows.append((times[choice], times[16], pms, lms, bms,
+                     bms if by == 'bytes' else 0.0))
+        print(f'{st:>8} {t:4d} {c:4d} {n:5d}  {err32:.2e}  {rel:.3f}  {int(pad.sum()):5d} ok  '
+              f'{shape_times(times, choice)}  {pms:9.4f} {lms:8.4f} {bms:9.5f}', flush=True)
     # B4's own path: the public op once per shape, in the production dtype
     fused_window_attention.launches = 0
     for q, k, v, bias in cases:
@@ -764,9 +826,10 @@ def check_unpacked(levels, channels):
     torch.cuda.synchronize()
     launches = fused_window_attention.launches
     assert launches == len(shapes), (launches, len(shapes))
-    kms, pms, lms, bms, bytes_ms = (sum(col) for col in zip(*rows))
-    return dict(max_err32=max_err32, launches=launches, ms=kms, plain_ms=pms, library_ms=lms,
-                bound_ms=bms, bound_by='bytes' if bytes_ms >= bms / 2 else 'operations')
+    kms, k16_ms, pms, lms, bms, bytes_ms = (sum(col) for col in zip(*rows))
+    return dict(max_err32=max_err32, launches=launches, ms=kms, ms16=k16_ms, plain_ms=pms,
+                library_ms=lms, bound_ms=bms,
+                bound_by='bytes' if bytes_ms >= bms / 2 else 'operations')
 
 
 def capture_attention_inputs(model_forward, batch):
@@ -816,6 +879,56 @@ def attention_yardsticks(seen):
         d['bound_by'] = 'bytes' if d.pop('bytes_ms') >= d['bound_ms'] / 2 else 'operations'
     torch.cuda.synchronize()
     return out
+
+
+def time_b1_levels(seen, what):
+    """Phase 4: B1 on a frame's captured inputs (the first call of each
+    level shape; `what` names the frame), device ms of one call in the
+    table's block shape and in the 16-row block; prints each level's live
+    windows and times, and returns the sums over the levels of calls x
+    each."""
+    from openseg3d_tpu_torch.ops.attention import _launch_cuda, eval_rows
+    sums = [0.0, 0.0]
+    for (n, t, c3), (calls, packed, bias, nw) in sorted(seen.items(), key=lambda kv: kv[0][1:]):
+        c = c3 // 3
+        rows = eval_rows(t, c // 8)
+        ms = [device_ms(functools.partial(_launch_cuda, packed, bias, 8, nw, r), 10)
+              for r in (rows, 16)]
+        print(f'  B1 {what} T={t} C={c}: {nw.tolist()} of {n // nw.numel()} windows live a '
+              f'sample, {calls} calls: {rows} rows {ms[0]:.4f} ms, 16 rows {ms[1]:.4f} ms a '
+              f'call', flush=True)
+        sums = [x + calls * y for x, y in zip(sums, ms)]
+    return sums
+
+
+def eval_tool_batches(cfg, device):
+    """tools.eval's inputs for its first synthetic frame
+    (``SyntheticDataset(cfg, 8, mode='validation')``, the frames of
+    ``tools.eval --synthetic``): the frame alone, as with --no_tta, and its
+    first TTA group at the default --tta_batch 2 (MultiScaleFlipAug's first
+    two variants in one batch, as tools.eval builds it). Returns {name:
+    batch on the device}."""
+    import numpy as np
+    from openseg3d_tpu_torch.data.batch import collate_padded, to_device
+    from openseg3d_tpu_torch.data.synthetic import SyntheticDataset
+    from openseg3d_tpu_torch.data.test_time_aug import MultiScaleFlipAug
+    dataset = SyntheticDataset(cfg, 8, mode='validation')
+    prepared = dataset.prepare_data(dataset.load_raw(0))
+    dataset.prepare_voxel_labels(prepared)
+    single = collate_padded([dataset.pad(prepared)])
+    tta = MultiScaleFlipAug(dataset, scales=[0.95, 1.0, 1.05],
+                            angles=[-np.pi / 4, 0.0, np.pi / 4], flip_x=True, flip_y=True)
+    try:
+        group = []
+        for b in tta(dataset.load_raw(0), index=0):
+            group.append(b)
+            if len(group) == 2:
+                break
+    finally:
+        tta.close()
+    pair = {k: np.concatenate([g[k] for g in group]) for k in group[0] if k != 'batch_size'}
+    return {'tools.eval frame 0, --no_tta': to_device(single, device),
+            'tools.eval frame 0, TTA group of 2': to_device(pair, device)}
 
 
 def knn_yardstick(dst, src, valid, chunk=4096):
@@ -891,7 +1004,10 @@ def profile_forward(forward, batch, core):
 def run_slice(cfg, device, expected_launches):
     """Phase 4. Returns (launches, median forward ms, median plain forward
     ms, peak bytes, profile of the kernel's forward, of the plain one, the
-    attention kernels' yardsticks on this forward's inputs)."""
+    attention kernels' yardsticks on this forward's inputs, {frame: B1's
+    sums over the levels of its forward in the table's block shape and in
+    the 16-row block (time_b1_levels)} for the bench frame and tools.eval's
+    frame alone and in its TTA group of 2)."""
     import torch
     from openseg3d_tpu_torch.engine import build_segmentor, make_eval_step, make_forward
     from openseg3d_tpu_torch.models import swformer
@@ -955,10 +1071,14 @@ def run_slice(cfg, device, expected_launches):
     assert profiles['kernel']['b1_fma_kernels'] == 0, profiles['kernel']
     assert profiles['plain']['b1_kernels'] == profiles['plain']['b1_fma_kernels'] == 0, \
         profiles['plain']
-    yardsticks = attention_yardsticks(capture_attention_inputs(forward, batch))
+    seen = capture_attention_inputs(forward, batch)
+    yardsticks = attention_yardsticks(seen)
+    b1_levels = {'bench frame': time_b1_levels(seen, 'bench frame')}
+    for name, frame in eval_tool_batches(cfg, device).items():
+        b1_levels[name] = time_b1_levels(capture_attention_inputs(forward, frame), name)
     return (launches, statistics.median(times['kernel']),
             statistics.median(times['plain']), peaks['kernel'],
-            profiles['kernel'], profiles['plain'], yardsticks)
+            profiles['kernel'], profiles['plain'], yardsticks, b1_levels)
 
 
 def plain_train_cores():
@@ -2691,6 +2811,7 @@ def run_measuring_tools(smi, b2b_split):
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this test runs only on a GPU', file=sys.stderr)
@@ -2729,21 +2850,22 @@ def main() -> int:
             if '_mma_kernel' in kernel:
                 mma_kernels.add(kernel)
                 assert stores == loads == 0, (kernel, stores, loads)
-    # every bf16 tensor-core kernel was seen by the gate: the eval kernel and
-    # the one-pass and two two-pass train backward kernels at head widths 6,
-    # 12, 24 and 48, and the train forward at its 5 (head width, key tile)
-    # pairs
-    assert len(mma_kernels) == 21, sorted(mma_kernels)
+    # every bf16 tensor-core kernel was seen by the gate: the one-pass and
+    # two two-pass train backward kernels at head widths 6, 12, 24 and 48,
+    # and the eval kernel and the train forward, each at its 5 (head width,
+    # key tile) pairs
+    assert len(mma_kernels) == 22, sorted(mma_kernels)
 
     # 3. kernel vs plain at the main path's shapes
     cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'))
     spec = ModelSpec.from_config(cfg)
     levels = stage_level_specs(spec)
     t0 = time.perf_counter()
-    k_ms, p_ms, err32 = check_kernel(levels, CHANNELS, spec.depths)
+    k_ms, k16_ms, p_ms, err32 = check_kernel(levels, CHANNELS, spec.depths)
     print(f'kernel check: {time.perf_counter() - t0:.1f} s; sum over shapes of depth x '
-          f'one call at capacity (bf16 device time): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, '
-          f'on {smi}', flush=True)
+          f'one call at capacity (bf16 device time): kernel {k_ms:.3f} ms in the table\'s '
+          f'launch shapes, {k16_ms:.3f} ms in the 16-row block, plain {p_ms:.3f} ms, on {smi}',
+          flush=True)
 
     # 3b. train kernels vs plain at the same shapes
     t0 = time.perf_counter()
@@ -2759,14 +2881,21 @@ def main() -> int:
     t0 = time.perf_counter()
     b4 = check_unpacked(levels, CHANNELS)
     print(f'unpacked kernel check: {time.perf_counter() - t0:.1f} s; B4 over the '
-          f'{b4["launches"]} shapes (bf16): kernel {b4["ms"]:.3f} ms, plain {b4["plain_ms"]:.3f} '
+          f'{b4["launches"]} shapes (bf16): kernel {b4["ms"]:.3f} ms in the table\'s launch '
+          f'shapes, {b4["ms16"]:.3f} ms in the 16-row block, plain {b4["plain_ms"]:.3f} '
           f'ms, SDPA {b4["library_ms"]:.3f} ms, bound {b4["bound_ms"]:.4f} ms '
           f'({b4["bound_by"]}), on {smi}', flush=True)
 
     # 4. the eval slice
     expected = sum(d * len(lv) for d, lv in zip(spec.depths, levels))
-    launches, step_ms, plain_step_ms, peak, prof, plain_prof, yard = run_slice(
+    launches, step_ms, plain_step_ms, peak, prof, plain_prof, yard, b1_levels = run_slice(
         cfg, device, expected)
+    print(f'B1 on the bench frame: {prof["b1_ms"]:.3f} ms profiled in one forward, on {smi}',
+          flush=True)
+    for name, (table_ms, ms16) in b1_levels.items():
+        print(f'B1 on the {name}: the levels\' first calls x their calls: {table_ms:.4f} ms '
+              f'in the table\'s block shapes, {ms16:.4f} ms in the 16-row block, on {smi}',
+              flush=True)
     print(f'slice: median forward {step_ms:.2f} ms ({N_POINTS / step_ms / 1e3:.3f} '
           f'Mpoints/s), plain attention {plain_step_ms:.2f} ms, peak memory '
           f'{peak / 2**30:.2f} GiB, on {smi}', flush=True)
@@ -2936,6 +3065,7 @@ def main() -> int:
           f'device ms a step by bucket '
           f'{ {k: round(v, 3) for k, v in profiled["by_bucket"].items()} }; on {smi}',
           flush=True)
+    print(f'chip_smoke: {time.perf_counter() - t_run:.1f} s in all, on {smi}', flush=True)
     print(json.dumps({'kernels': [{
         'name': name,
         'route': 'cuda',

@@ -33,14 +33,18 @@
 // bf16 with C % 8 == 0 and 16-byte aligned q, k, v and out (every model
 //   shape): tensor cores, window_attention_mma_kernel, the body of the train
 //   forward (wa_mma::attend_rows in window_attention_mma.cuh) without dropout
-//   and statistics. A block is one window and 16 query rows, one warp per
-//   head (up to 8; more heads are split into groups of 8 over grid z), so
-//   the window's k and v rows are read once per block for all its heads:
-//   q rows staged once, k and v rows streamed through shared memory by
-//   16-byte cp.async in double-buffered tiles, logits and P V on mma.sync
-//   (bf16 in, float32 sums), FlashAttention-2's online softmax on the
-//   accumulator fragments, P rounded to bf16 before P V as the TPU kernel
-//   rounds it (attn.astype(v.dtype)), keys past T at -inf.
+//   and statistics: q rows staged once, k and v rows streamed through shared
+//   memory by 16-byte cp.async in double-buffered tiles, logits and P V on
+//   mma.sync (bf16 in, float32 sums), FlashAttention-2's online softmax on
+//   the accumulator fragments, P rounded to bf16 before P V as the TPU kernel
+//   rounds it (attn.astype(v.dtype)), keys past T at -inf. The launch shape
+//   comes from the caller (ops/attention.py's eval_shape, a table by head
+//   width and T filled from chip_smoke's timing of every shape): a block
+//   serves `row_tiles` 16-row query tiles of `heads` heads, one warp per
+//   (row tile, head), at most 8 warps: 16 rows of 8 heads (which read a
+//   window's k|v rows from L2 T / 16 times), or 32 rows of 4 heads or 64
+//   rows of 2, which read them T / 32 or T / 64 times, each block fewer
+//   columns of them.
 // float32, and bf16 at other widths or alignments (corners of the public
 //   unpacked op that no model reaches): FMA bodies, window_attention_kernel.
 //   One thread owns one query row of one head, its q row and output
@@ -211,63 +215,90 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, int stride,
 // ---------------------------------------------------------------------------
 using wa_mma::bf16;
 
-// grid: x = window, y = 16-row chunk, z = head group (8 heads, the last one
-// possibly fewer). q, k and v point at column 0 of their rows, `stride`
-// elements apart; nw may be null (every window live).
-template <int HD>
-__global__ void __launch_bounds__(32 * wa_mma::kMaxHeads)
+constexpr int kMmaThreads = 32 * wa_mma::kMaxHeads;   // 8 warps a block at most
+
+// The bf16 launch shape: `heads` heads (dividing nhead, heads x head width
+// a multiple of 8) and `row_tiles` 16-row query tiles a block, key tiles
+// of `key_tile` rows. float32 ignores it.
+struct Shape {
+  int heads, row_tiles, key_tile;
+};
+
+// grid: x = window, y = query row block, z = head group. q, k and v point
+// at column 0 of their rows, `stride` elements apart; nw may be null (every
+// window live). At least 3 blocks an SM, as for the train forward's body:
+// without a minimum, ptxas held <24, 32> at 48 registers and spilled.
+template <int HD, int KT>
+__global__ void __launch_bounds__(kMmaThreads, 3)
 window_attention_mma_kernel(const bf16* __restrict__ q_base, const bf16* __restrict__ k_base,
                             const bf16* __restrict__ v_base, int stride,
                             const float* __restrict__ bias, const int* __restrict__ nw,
-                            bf16* __restrict__ out, int t, int c, int windows_per_sample) {
+                            bf16* __restrict__ out, int t, int c, int windows_per_sample,
+                            int heads, int row_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = blockIdx.x, r0 = wa_mma::kRows * blockIdx.y;
-  const int col0 = wa_mma::kMaxHeads * HD * blockIdx.z;     // the group's first column
-  const int cols = min(c - col0, wa_mma::kMaxHeads * HD);
-  const size_t win = static_cast<size_t>(n) * t * stride + col0;
-  bf16* out_win = out + static_cast<size_t>(n) * t * c + col0;
+  const int rows = wa_mma::kRows * row_tiles, cols = heads * HD;
+  const int n = blockIdx.x, r0 = rows * blockIdx.y;
+  const size_t win = static_cast<size_t>(n) * t * stride + cols * blockIdx.z;
+  bf16* out_win = out + static_cast<size_t>(n) * t * c + cols * blockIdx.z;
 
   // padding window: zeros, nothing to compute (the whole block returns)
   if (nw != nullptr && n % windows_per_sample >= nw[n / windows_per_sample]) {
-    wa_mma::zero_rows(out_win, c, r0, wa_mma::kRows, t, 0, cols);
+    wa_mma::zero_rows(out_win, c, r0, rows, t, 0, cols);
     return;
   }
   wa_mma::PlainWeights weights;
   wa_mma::RowSoftmax sm;
   float l[2];
-  wa_mma::attend_rows<HD>(q_base + win, k_base + win, v_base + win, stride,
-                          bias + static_cast<size_t>(n) * t, t, r0, 1, cols, out_win, c,
-                          smem_raw, weights, sm, l);
+  wa_mma::attend_rows<HD, KT>(q_base + win, k_base + win, v_base + win, stride,
+                              bias + static_cast<size_t>(n) * t, t, r0, row_tiles, cols, out_win,
+                              c, smem_raw, weights, sm, l);
 }
 
-template <int HD>
+// Launches shape `sh` after checking it against the kernel's limits.
+template <int HD, int KT>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, int stride,
                        const float* bias, const int* nw, void* out, int n, int t, int c,
-                       int nhead, int windows_per_sample, cudaStream_t stream) {
-  const int heads = nhead < wa_mma::kMaxHeads ? nhead : wa_mma::kMaxHeads;
-  const size_t smem = wa_mma::attend_smem<HD>(heads * HD);
-  auto kernel = window_attention_mma_kernel<HD>;
+                       int nhead, int windows_per_sample, Shape sh, cudaStream_t stream) {
+  const int threads = 32 * sh.heads * sh.row_tiles;
+  if (sh.heads < 1 || sh.row_tiles < 1 || nhead % sh.heads || (sh.heads * HD) % 8 ||
+      threads > kMmaThreads || sh.key_tile != KT)
+    return cudaErrorInvalidValue;
+  const size_t smem = wa_mma::attend_smem<HD, KT>(sh.heads * HD, sh.row_tiles);
+  auto kernel = window_attention_mma_kernel<HD, KT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(n, (t + wa_mma::kRows - 1) / wa_mma::kRows, (nhead + heads - 1) / heads);
-  kernel<<<grid, 32 * heads, smem, stream>>>(
+  const int rows = wa_mma::kRows * sh.row_tiles;
+  const dim3 grid(n, (t + rows - 1) / rows, nhead / sh.heads);
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      stride, bias, nw, static_cast<bf16*>(out), t, c, windows_per_sample);
+      stride, bias, nw, static_cast<bf16*>(out), t, c, windows_per_sample, sh.heads,
+      sh.row_tiles);
   return cudaGetLastError();
 }
+
+// returns CALL(HD, KT) for the bf16 kernel's (head width, key tile) pairs
+// (hd, kt): 64 at head widths 6 and 12, 32 at 24, 16 (16-row blocks of 8
+// heads) or 64 at 48 (ops/attention.py's eval_shape chooses)
+#define BY_TILE(CALL)                                                      \
+  if (hd == 6 && kt == 64) return CALL(6, 64);                             \
+  if (hd == 12 && kt == 64) return CALL(12, 64);                           \
+  if (hd == 24 && kt == 32) return CALL(24, 32);                           \
+  if (hd == 48 && kt == 16) return CALL(48, 16);                           \
+  if (hd == 48 && kt == 64) return CALL(48, 64);                           \
+  return cudaErrorInvalidValue;
 
 // ---------------------------------------------------------------------------
 // dispatch
 // ---------------------------------------------------------------------------
-using Launch = cudaError_t (*)(const void*, const void*, const void*, int, const float*,
-                               const int*, void*, int, int, int, int, int, cudaStream_t);
+using FmaLaunch = cudaError_t (*)(const void*, const void*, const void*, int, const float*,
+                                  const int*, void*, int, int, int, int, int, cudaStream_t);
 
-// the launch of head width hd (6, 12, 24 or 48; else null)
+// the FMA launch of head width hd (6, 12, 24 or 48; else null)
 template <template <int> class Body>
-Launch by_head_dim(int hd) {
+FmaLaunch by_head_dim(int hd) {
   switch (hd) {
     case 6: return Body<6>::fn;
     case 12: return Body<12>::fn;
@@ -277,27 +308,32 @@ Launch by_head_dim(int hd) {
   }
 }
 
-template <int HD> struct FmaF32 { static constexpr Launch fn = launch_fma<float, HD>; };
-template <int HD> struct FmaBf16 { static constexpr Launch fn = launch_fma<bf16, HD>; };
-template <int HD> struct Mma { static constexpr Launch fn = launch_mma<HD>; };
+template <int HD> struct FmaF32 { static constexpr FmaLaunch fn = launch_fma<float, HD>; };
+template <int HD> struct FmaBf16 { static constexpr FmaLaunch fn = launch_fma<bf16, HD>; };
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // q, k, v rows `stride` elements apart; dtype 0 = float32, 1 = bfloat16
 cudaError_t dispatch(const void* q, const void* k, const void* v, int stride,
                      const void* bias, const void* nw, void* out, int n, int t, int c,
-                     int nhead, int wps, int dtype, void* stream) {
+                     int nhead, int wps, int dtype, Shape sh, void* stream) {
   if (n <= 0 || t <= 0 || nhead <= 0 || c % nhead != 0 || wps <= 0 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
+  const float* b = static_cast<const float*>(bias);
+  const int* w = static_cast<const int*>(nw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the tensor-core body stages 16-byte pieces of C-column rows
-  const bool mma = dtype == 1 && c % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-                   aligned16(out);
-  const Launch fn = dtype == 0 ? by_head_dim<FmaF32>(c / nhead)
-                    : mma      ? by_head_dim<Mma>(c / nhead)
-                               : by_head_dim<FmaBf16>(c / nhead);
+  if (dtype == 1 && c % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+      aligned16(out)) {
+    const int hd = c / nhead, kt = sh.key_tile;
+#define LAUNCH(HD, KT) launch_mma<HD, KT>(q, k, v, stride, b, w, out, n, t, c, nhead, wps, sh, s)
+    BY_TILE(LAUNCH)
+#undef LAUNCH
+  }
+  const FmaLaunch fn = dtype == 0 ? by_head_dim<FmaF32>(c / nhead)
+                                  : by_head_dim<FmaBf16>(c / nhead);
   if (fn == nullptr) return cudaErrorInvalidValue;
-  return fn(q, k, v, stride, static_cast<const float*>(bias), static_cast<const int*>(nw), out,
-            n, t, c, nhead, wps, static_cast<cudaStream_t>(stream));
+  return fn(q, k, v, stride, b, w, out, n, t, c, nhead, wps, s);
 }
 
 }  // namespace
@@ -308,26 +344,30 @@ extern "C" {
 // float32, nw [n / windows_per_sample] int32, out [n, t, c] of packed's dtype.
 // The caller checks shapes; head_dim c / nhead must be 6, 12, 24 or 48.
 // bfloat16 runs on tensor cores when c % 8 == 0 and packed and out are
-// 16-byte aligned, else on the FMA body.
+// 16-byte aligned, in the launch shape (heads, row_tiles, key_tile)
+// (struct Shape), else on the FMA body, which ignores the shape.
 int window_attention_packed(const void* packed, const void* bias, const void* nw,
                             void* out, int n, int t, int c, int nhead,
-                            int windows_per_sample, int dtype, void* stream) {
+                            int windows_per_sample, int dtype, int heads, int row_tiles,
+                            int key_tile, void* stream) {
   const size_t item = dtype == 1 ? sizeof(__nv_bfloat16) : sizeof(float);
   const char* p = static_cast<const char*>(packed);
   return static_cast<int>(dispatch(p, p + c * item, p + 2 * c * item, 3 * c, bias, nw, out,
-                                   n, t, c, nhead, windows_per_sample, dtype, stream));
+                                   n, t, c, nhead, windows_per_sample, dtype,
+                                   Shape{heads, row_tiles, key_tile}, stream));
 }
 
 // q, k, v [n, t, c] of one dtype (0 = float32, 1 = bfloat16), bias [n, t]
 // float32, out [n, t, c] of q's dtype; every window is computed.
 // The caller checks shapes; head_dim c / nhead must be 6, 12, 24 or 48.
 // bfloat16 runs on tensor cores when c % 8 == 0 and q, k, v and out are
-// 16-byte aligned, else on the FMA body.
+// 16-byte aligned, in the launch shape as for window_attention_packed, else
+// on the FMA body.
 int window_attention_unpacked(const void* q, const void* k, const void* v, const void* bias,
-                              void* out, int n, int t, int c, int nhead, int dtype,
-                              void* stream) {
+                              void* out, int n, int t, int c, int nhead, int dtype, int heads,
+                              int row_tiles, int key_tile, void* stream) {
   return static_cast<int>(dispatch(q, k, v, c, bias, nullptr, out, n, t, c, nhead, n, dtype,
-                                   stream));
+                                   Shape{heads, row_tiles, key_tile}, stream));
 }
 
 const char* window_attention_error_string(int code) {

@@ -323,20 +323,33 @@ def _dtype_code(x: torch.Tensor) -> int:
     return 0 if x.dtype == torch.float32 else 1
 
 
-def _launch_cuda(packed, bias, nhead, nw):
+def _eval_launch_shape(x, t, c, nhead, rows):
+    """eval_shape's (heads, row_tiles, key_tile) for the bf16 tensor-core
+    kernel (C a multiple of 8) in blocks of `rows` query rows (None: the
+    table's); zeros where the FMA body runs, which ignores them."""
+    if x.dtype != torch.bfloat16 or c % 8:
+        return 0, 0, 0
+    return eval_shape(t, c // nhead, nhead, rows)
+
+
+def _launch_cuda(packed, bias, nhead, nw, rows=None):
+    """B1's launch; rows: the query rows of a bf16 block to force
+    (chip_smoke and the card tests time and check each), None for the
+    table's."""
     _check_cuda_args(packed, bias, nhead, nw)
     lib = _build.load('window_attention')
     fn = lib.window_attention_packed
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n, t, c3 = packed.shape
     out = torch.empty((n, t, c3 // 3), dtype=packed.dtype, device=packed.device)
     if n == 0 or t == 0:
         return out
+    shape = _eval_launch_shape(packed, t, c3 // 3, nhead, rows)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         rc = fn(packed.data_ptr(), bias.data_ptr(), nw.data_ptr(), out.data_ptr(),
-                n, t, c3 // 3, nhead, n // nw.shape[0], _dtype_code(packed), stream)
+                n, t, c3 // 3, nhead, n // nw.shape[0], _dtype_code(packed), *shape, stream)
     _raise_on_error(lib, rc, 'window_attention_packed', 'window_attention_error_string')
     window_attention_packed.launches += 1
     return out
@@ -365,7 +378,8 @@ def _check_unpacked_args(q, k, v, bias, nhead):
         raise ValueError(f'bias must be [{n}, {t}], got {tuple(bias.shape)}')
 
 
-def _launch_unpacked(q, k, v, bias, nhead):
+def _launch_unpacked(q, k, v, bias, nhead, rows=None):
+    """B4's launch; rows as for _launch_cuda."""
     if bias.dtype != torch.float32:
         raise ValueError(f'bias must be float32 on the GPU, got {bias.dtype}')
     for name, x in (('q', q), ('k', k), ('v', v), ('bias', bias)):
@@ -375,16 +389,17 @@ def _launch_unpacked(q, k, v, bias, nhead):
             raise ValueError(f'{name} must be contiguous')
     lib = _build.load('window_attention')
     fn = lib.window_attention_unpacked
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n, t, c = q.shape
     out = torch.empty_like(q)
     if n == 0:
         return out
+    shape = _eval_launch_shape(q, t, c, nhead, rows)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                n, t, c, nhead, _dtype_code(q), stream)
+                n, t, c, nhead, _dtype_code(q), *shape, stream)
     _raise_on_error(lib, rc, 'fused_window_attention', 'window_attention_error_string')
     fused_window_attention.launches += 1
     return out
@@ -484,6 +499,58 @@ def train_backward_shape(t: int, hd: int, nhead: int, one_pass: bool | None = No
     if not heads:
         raise ValueError(f'no one-pass train backward for T={t}, head_dim {hd}, nhead {nhead}')
     return heads, warps
+
+
+# Launch shapes of the bf16 eval kernel (B1, B4), chosen by (head_dim, T)
+# alone. A block serves `rows` query rows (16, 32 or 64: 1, 2 or 4 row
+# tiles) of 8, 4 or 2 heads, 8 warps at most (at head_dim 6 no 64-row block:
+# 2 heads' 12 columns are no 16-byte rows). EVAL_ROWS[hd]: the (lo, hi, rows)
+# ranges of T that take 32- or 64-row blocks, 16 rows elsewhere, from
+# chip_smoke phases 3 and 3d, which time every block shape at every
+# main-path shape in one call (PERF.md): wider blocks win at every T from 32
+# (32 rows at head_dim 6 and at 12 below T = 256, 64 rows elsewhere); the
+# 16-row block stays at T = 16. Key tiles: 64 keys at head_dim 48 in 32- and
+# 64-row blocks won 7-11% over 32 at every T.
+EVAL_ROWS = {6: ((32, 800, 32),), 12: ((32, 255, 32), (256, 800, 64)), 24: ((32, 800, 64),),
+             48: ((64, 800, 64),)}
+EVAL_BLOCK_ROWS = (16, 32, 64)
+_EVAL_WARPS = 8
+_EVAL_KEY_TILE = {6: 64, 12: 64, 24: 32, 48: 64}   # 16 for 16-row blocks at head_dim 48
+
+
+def eval_rows(t: int, hd: int) -> int:
+    """The table's query rows a block for windows of T tokens at head_dim hd."""
+    for lo, hi, rows in EVAL_ROWS[hd]:
+        if lo <= t <= hi:
+            return rows
+    return 16
+
+
+def eval_shape(t: int, hd: int, nhead: int, rows: int | None = None):
+    """(heads, row_tiles, key_tile) of the bf16 eval kernel's launch for
+    windows of T tokens at head_dim hd: a block serves `heads` heads and
+    row_tiles x 16 query rows and streams key_tile key rows a tile. rows:
+    16, 32 or 64 query rows a block, None for the table's (eval_rows).
+    Raises where no head group of the rows' warps has 16-byte rows."""
+    rows = eval_rows(t, hd) if rows is None else rows
+    heads = _head_group(nhead, hd, _EVAL_WARPS * 16 // rows) if rows in EVAL_BLOCK_ROWS else 0
+    if not heads:
+        raise ValueError(f'no {rows}-row eval block for head_dim {hd}, nhead {nhead}')
+    key_tile = 16 if hd == 48 and rows == 16 else _EVAL_KEY_TILE[hd]
+    return heads, min(rows // 16, -(-t // 16)), key_tile
+
+
+def eval_launch_shapes(t: int, hd: int, nhead: int) -> list:
+    """The query rows a block (16, 32, 64) that ``eval_shape`` takes at T,
+    head_dim hd and nhead."""
+    shapes = []
+    for rows in EVAL_BLOCK_ROWS:
+        try:
+            eval_shape(t, hd, nhead, rows)
+        except ValueError:
+            continue
+        shapes.append(rows)
+    return shapes
 
 
 def window_attention_train_forward(packed, bias, seed, nw, nhead: int, drop_rate: float, *,
@@ -617,14 +684,17 @@ def window_attention_packed(packed: torch.Tensor, bias: torch.Tensor,
                             nhead: int, nw: torch.Tensor) -> torch.Tensor:
     """Packed window attention, [N, T, 3C] q|k|v -> [N, T, C].
 
-    On a CUDA tensor: the CUDA kernel, output in the input's dtype;
-    ``window_attention_packed.launches`` counts its launches. bfloat16 with
-    C a multiple of 8 and packed 16-byte aligned (every model shape) runs on
-    tensor cores with float32 sums and rounds the softmax weights to bf16
-    before P V, as the TPU kernel does: within ``train_forward_bound(plain,
-    packed, nhead, 0.0)`` of the plain version. float32, and bfloat16 at
-    other widths, runs the FMA body (float32 sums; in float32 within 1e-5
-    of the plain version). On a CPU tensor: ``window_attention_packed_plain``."""
+    On a CUDA tensor: the CUDA kernel, one launch a call, output in the
+    input's dtype; ``window_attention_packed.launches`` counts its launches.
+    bfloat16 with C a multiple of 8 and packed 16-byte aligned (every model
+    shape) runs on tensor cores with float32 sums and rounds the softmax
+    weights to bf16 before P V, as the TPU kernel does: within
+    ``train_forward_bound(plain, packed, nhead, 0.0)`` of the plain version,
+    in the launch shape ``eval_shape`` gives by T and head width.
+    float32, and bfloat16 at other widths, runs the FMA body (float32 sums;
+    in float32 within 1e-5 of the plain version), which has no launch shape.
+    nw is not read on the host. On a CPU tensor:
+    ``window_attention_packed_plain``, not counted."""
     if packed.is_cuda:
         return _launch_cuda(packed, bias, nhead, nw)
     if packed.device.type == 'cpu':
@@ -644,10 +714,12 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``fused_window_attention.launches``. bfloat16 with C a multiple of 8 and
     q, k and v 16-byte aligned runs on tensor cores, within
     ``train_forward_bound`` at rate 0 of the plain version (the softmax
-    weights rounded to bf16 before P V, as the TPU kernel does); float32
+    weights rounded to bf16 before P V, as the TPU kernel does), in the
+    launch shape ``eval_shape`` gives by T and head width; float32
     runs the FMA body in float32, and so does bfloat16 with C not a multiple
     of 8 (a head count no model uses) or operands that are not 16-byte
-    aligned. On a CPU tensor: ``fused_window_attention_plain``."""
+    aligned. On a CPU tensor: ``fused_window_attention_plain``, not
+    counted."""
     _check_unpacked_args(q, k, v, bias, nhead)
     if q.is_cuda:
         return _launch_unpacked(q, k, v, bias, nhead)

@@ -20,15 +20,17 @@ largest magnitude: float32 within 1e-4 (sums of T products); bfloat16 within
 its residual O). The dropout mask is the same hash in both, so these hold at
 drop rate 0.1 as at 0; the bits the bf16 forward stores equal the plain
 packer's to the bit, and the bf16 backward (no atomics) gives the same bits
-twice. 1-NN: indices equal. Weight-gradient product:
+twice. The bf16 eval kernel in every block shape (16-, 32- and 64-row
+blocks) holds the same bound. 1-NN: indices equal. Weight-gradient product:
 within 1e-5 of the largest element of the exact (float64) sum.
 """
 
 import pytest
 import torch
 
-from openseg3d_tpu_torch.ops.attention import (attention_group, dropout_keep_mask,
-                                               fused_window_attention,
+from openseg3d_tpu_torch.ops.attention import (_launch_cuda, _launch_unpacked, attention_group,
+                                               dropout_keep_mask, eval_launch_shapes, eval_rows,
+                                               eval_shape, fused_window_attention,
                                                fused_window_attention_plain, pack_keep_bits,
                                                train_backward_shape, train_forward_bound,
                                                window_attention_packed,
@@ -127,6 +129,52 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         window_attention_packed(packed, bias.half(), NHEAD, nw)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('t,c,nhead,n,nw', [
+    (800, 384, 8, 2, [1, 0]), (800, 48, 8, 2, [1, 0]), (512, 96, 8, 8, [3, 2]),
+    (256, 192, 8, 12, [5, 4]), (128, 96, 4, 12, [5, 4]), (64, 48, 2, 16, [6, 5]),
+    (100, 48, 1, 12, [4, 5]), (48, 96, 16, 12, [4, 5]), (32, 24, 4, 16, [5, 6]),
+    (16, 48, 8, 48, [7, 19])])
+def test_eval_launch_shapes_match_plain(cuda, t, c, nhead, n, nw):
+    """bf16 B1 in every block shape (16-, 32- and 64-row blocks; the private
+    launch, which forces one) at T = 800 with one live window, the
+    few-window and many-window levels, T off the 16-row tiles, nhead 1, 2,
+    4, 8 and 16: within the bound of the plain version, windows past nw and
+    the fully padded window zero, one launch a call; the public op runs the
+    table's shape."""
+    packed, bias, nwt = _packed_case(cuda, n, t, c, nw, torch.bfloat16, nhead=nhead)
+    want = window_attention_packed_plain(packed, bias, nhead, nwt).float()
+    lim = train_forward_bound(want, packed, nhead, 0.0)
+    wps = n // 2
+    shapes = eval_launch_shapes(t, c // nhead, nhead)
+    assert 16 in shapes and len(shapes) > 1
+    for rows in shapes:
+        before = window_attention_packed.launches
+        got = _launch_cuda(packed, bias, nhead, nwt, rows)
+        torch.cuda.synchronize()
+        assert window_attention_packed.launches == before + 1
+        err = (got.float() - want).abs()
+        assert bool((err <= lim).all()), (rows, float(err.max()))
+        assert not got[1].any(), rows
+        for s_, count in enumerate(nw):
+            assert not got[s_ * wps + count:(s_ + 1) * wps].any(), rows
+    chosen = _launch_cuda(packed, bias, nhead, nwt, eval_rows(t, c // nhead))
+    assert torch.equal(window_attention_packed(packed, bias, nhead, nwt), chosen)
+
+
+@pytest.mark.cuda
+def test_eval_shape_the_kernel_refuses_raises(cuda):
+    """A block shape past the kernel's limits (no 64-row block at head_dim
+    6) is refused by eval_shape before any launch, and nothing is
+    counted."""
+    packed, bias, nw = _packed_case(cuda, 4, 16, 48, [2, 2], torch.bfloat16)
+    before = window_attention_packed.launches
+    with pytest.raises(ValueError, match='64-row'):
+        _launch_cuda(packed, bias, NHEAD, nw, 64)
+    assert window_attention_packed.launches == before
+    assert eval_shape(16, 6, NHEAD, 16) == (8, 1, 64)
+
+
 def _unpacked_case(device, t, c, dtype, nhead):
     """q, k, v for B4 (N = 2 attention groups); window 1 fully padded, its
     v rows random (padded rows need not be zero)."""
@@ -176,6 +224,23 @@ def test_unpacked_kernel_matches_plain_at_other_head_counts(cuda, nhead, t, c, d
     _check_unpacked(*_unpacked_case(cuda, t, c, dtype, nhead), nhead)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('t,c,nhead', [(800, 384, 8), (256, 96, 8), (64, 96, 4), (64, 384, 16)])
+def test_unpacked_launch_shapes_fully_padded_window(cuda, t, c, nhead):
+    """bf16 B4 in every block shape: within the bound, the fully padded
+    window 1 the mean of its own v rows."""
+    q, k, v, bias = _unpacked_case(cuda, t, c, torch.bfloat16, nhead)
+    want = fused_window_attention_plain(q, k, v, bias, nhead).float()
+    lim = train_forward_bound(want, torch.cat([q, k, v], -1), nhead, 0.0)
+    mean = v[1].float().mean(0).expand(t, c)
+    for rows in eval_launch_shapes(t, c // nhead, nhead):
+        got = _launch_unpacked(q, k, v, bias, nhead, rows)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        assert bool((err <= lim).all()), (rows, float(err.max()))
+        assert bool(((got[1].float() - mean).abs() <= lim[1] + 1e-6).all()), rows
+
+
 def _kernel_names(fn):
     """Names of the CUDA kernels that fn() launches (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -185,25 +250,27 @@ def _kernel_names(fn):
     return [e.name for e in prof.events() if 'window_attention' in e.name]
 
 
-def _bodies(names):
-    """(tensor-core launches, FMA-body launches) among kernel names."""
-    return (sum('window_attention_mma_kernel' in x for x in names),
-            sum('window_attention_kernel' in x for x in names))
+def _bodies(names, mma='window_attention_mma_kernel'):
+    """(tensor-core launches, FMA-body launches) among kernel names; mma:
+    the tensor-core kernel's name with its template arguments (head width,
+    key tile) as the profiler gives them."""
+    return (sum(mma in x for x in names), sum('window_attention_kernel' in x for x in names))
 
 
 @pytest.mark.cuda
 def test_eval_kernel_body_follows_dtype_width_and_alignment(cuda):
     """bf16 with C % 8 == 0 and 16-byte aligned operands runs the
-    tensor-core kernel; float32, bf16 with C % 8 != 0 and bf16 operands off
+    tensor-core kernel, window_attention_mma_kernel<head width, key tile>
+    (here <12, 64>); float32, bf16 with C % 8 != 0 and bf16 operands off
     16-byte alignment run the FMA body; each result matches its plain
     version."""
     for dtype, body in ((torch.bfloat16, (1, 0)), (torch.float32, (0, 1))):
         packed, bias, nw = _packed_case(cuda, 48, 64, 96, [7, 19], dtype)
-        assert _bodies(_kernel_names(
-            lambda: window_attention_packed(packed, bias, NHEAD, nw))) == body, dtype
+        assert _bodies(_kernel_names(lambda: window_attention_packed(packed, bias, NHEAD, nw)),
+                       'window_attention_mma_kernel<12, 64>') == body, dtype
         q, k, v, b = _unpacked_case(cuda, 64, 96, dtype, NHEAD)
-        assert _bodies(_kernel_names(
-            lambda: fused_window_attention(q, k, v, b, NHEAD))) == body, dtype
+        assert _bodies(_kernel_names(lambda: fused_window_attention(q, k, v, b, NHEAD)),
+                       'window_attention_mma_kernel<12, 64>') == body, dtype
     q, k, v, b = _unpacked_case(cuda, 32, 18, torch.bfloat16, 3)
     assert _bodies(_kernel_names(lambda: fused_window_attention(q, k, v, b, 3))) == (0, 1)
     # q two bytes past a 16-byte boundary (still contiguous)
