@@ -1,0 +1,6 @@
+"""The sparse convs' share of their roofline (live rulebook pairs)."""
+from benchmark.metrics._share import roofline
+
+
+def read(ctx):
+    return roofline(ctx, 'conv')
