@@ -2790,7 +2790,8 @@ def run_measuring_tools(smi, b2b_split):
     assert prof['by_bucket']['attention'] > 0 and prof['by_bucket']['knn'] > 0, prof
     for module in ('PointBranch_0', 'PointTransformer_0.ConvModule_0',
                    'PointTransformer_0.SWFormerBlock_3', 'PointTransformer_0.UpBlock_3',
-                   'SegmentorHead_0', 'structure', 'window_partition_0', 'loss'):
+                   'SegmentorHead_0', 'seg3d.structure.rulebooks', 'seg3d.structure.windows',
+                   'seg3d.loss'):
         assert any(k.startswith(module) for k in prof['by_module']), (module, prof['by_module'])
     assert any(k.startswith('backward: ') for k in prof['by_module'])
 

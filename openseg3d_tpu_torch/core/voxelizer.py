@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import native
+from ..utils.profiling import span
 
 
 class VoxelGenerator:
@@ -47,10 +48,11 @@ class VoxelGenerator:
         """points [N, >=3] (x,y,z,...) -> (voxel_coords [M,3] int32 zyx,
         point_voxel_ids [N] int32, -1 = out of range), through the C++
         voxelizer when it builds (the production path), else numpy."""
-        if native.available():
-            return native.native_points_to_voxel(points, self._voxel_size,
-                                                 self._point_cloud_range)
-        return points_to_voxel(points, self._voxel_size, self._point_cloud_range)
+        with span('voxelize'):
+            if native.available():
+                return native.native_points_to_voxel(points, self._voxel_size,
+                                                     self._point_cloud_range)
+            return points_to_voxel(points, self._voxel_size, self._point_cloud_range)
 
 
 def points_to_voxel(points: np.ndarray, voxel_size, coors_range):

@@ -18,6 +18,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 PAD_LABEL = 255
 
 
@@ -25,6 +27,12 @@ def pad_sample(sample: dict, max_points: int, max_voxels: int,
                ignore_index: int = PAD_LABEL, logger=None) -> dict:
     """Pad one dataset sample to fixed capacity. Overflow is truncated (and
     logged), as in the JAX package."""
+    with span('pad'):
+        return _pad_sample(sample, max_points, max_voxels, ignore_index, logger)
+
+
+def _pad_sample(sample, max_points, max_voxels, ignore_index, logger):
+    # the JAX package's pad_sample body, line for line
     pts = np.asarray(sample['points'], dtype=np.float32)
     n = pts.shape[0]
     if n > max_points:
@@ -105,7 +113,8 @@ def pad_sample(sample: dict, max_points: int, max_voxels: int,
 def collate_padded(samples: list[dict]) -> dict:
     """Stack padded samples into [B, cap, ...] arrays."""
     keys = samples[0].keys()
-    batch = {k: np.stack([s[k] for s in samples], axis=0) for k in keys}
+    with span('pad'):
+        batch = {k: np.stack([s[k] for s in samples], axis=0) for k in keys}
     batch['batch_size'] = len(samples)
     return batch
 
@@ -114,5 +123,6 @@ def to_device(batch: dict, device) -> dict:
     """numpy batch -> dict of tensors on `device` (dtypes kept: bool masks,
     int32 ids and coords, float32 points). Non-array entries such as
     ``batch_size`` are dropped; the tensors' shapes carry it."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items() if isinstance(v, np.ndarray)}
+    with span('h2d'):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in batch.items() if isinstance(v, np.ndarray)}

@@ -29,6 +29,7 @@ From JAX to PyTorch:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable
 
 import torch
@@ -40,6 +41,7 @@ from .models.segmentors.common import ModelSpec
 from .ops.knn import nearest_label_transfer
 from .parallel.dist import all_reduce_sum, gather_rows, rank, reduce_gradients
 from .utils.pointops import get_voxel_centers
+from .utils.profiling import span
 
 
 def build_segmentor(cfg, device='cuda'):
@@ -83,7 +85,7 @@ def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generat
 def _aux_labels(result, batch, spec: ModelSpec):
     """The stage-4 voxels' labels: each takes its nearest full-resolution
     voxel's label (B3 on the card)."""
-    with torch.no_grad():
+    with span('aux_labels'), torch.no_grad():
         centers = get_voxel_centers(result['voxel_coords'], 1.0, spec.voxel_size,
                                     spec.point_cloud_range)
         aux_centers = get_voxel_centers(result['aux_voxel_coords'], 8.0, spec.voxel_size,
@@ -137,27 +139,34 @@ def make_train_step(cfg, spec: ModelSpec):
     aux_w = float(cfg.MODEL.AUX_LOSS_WEIGHT)
 
     def train_step(state: TrainState, batch, seed: int = 0):
-        model = state.model
-        device = next(model.parameters()).device
-        model.train()
-        # the BatchNorm running statistics as they were, for the guard
-        stats = {name: b.clone() for name, b in model.named_buffers()}
-        state.optimizer.zero_grad(set_to_none=True)
-        out = model(batch, rng=step_generator(seed, state.step, device, rank()))
-        loss = compute_loss(out, batch, criterion, spec, aux_w)
-        loss.backward()
-        params = [p for group in state.optimizer.param_groups for p in group['params']]
-        reduce_gradients(params)
-        finite = _grads_finite(params)
-        if finite:
-            set_learning_rate(state.optimizer, state.schedule(state.updates))
-            state.optimizer.step()
-            state.updates += 1
-        else:
-            with torch.no_grad():
-                for name, b in model.named_buffers():
-                    b.copy_(stats[name])
-        state.step += 1
+        with span('train_step', state.step):
+            model = state.model
+            device = next(model.parameters()).device
+            model.train()
+            # the BatchNorm running statistics as they were, for the guard
+            stats = {name: b.clone() for name, b in model.named_buffers()}
+            state.optimizer.zero_grad(set_to_none=True)
+            with span('forward'):
+                out = model(batch, rng=step_generator(seed, state.step, device, rank()))
+            with span('loss'):
+                loss = compute_loss(out, batch, criterion, spec, aux_w)
+            with span('backward'):
+                loss.backward()
+            params = [p for group in state.optimizer.param_groups for p in group['params']]
+            with span('grad_reduce'):
+                reduce_gradients(params)
+            with span('guard'):
+                finite = _grads_finite(params)
+            if finite:
+                with span('optimizer'):
+                    set_learning_rate(state.optimizer, state.schedule(state.updates))
+                    state.optimizer.step()
+                state.updates += 1
+            else:
+                with span('bn_restore'), torch.no_grad():
+                    for name, b in model.named_buffers():
+                        b.copy_(stats[name])
+            state.step += 1
         return state, {'loss': loss.detach(), 'grads_finite': finite}
 
     return train_step
@@ -166,9 +175,11 @@ def make_train_step(cfg, spec: ModelSpec):
 def make_forward(model: torch.nn.Module):
     """The serving forward: padded batch of tensors -> point logits
     [B, P, num_classes] (float32)."""
+    calls = itertools.count()
+
     def forward(batch):
         model.eval()
-        with torch.inference_mode():
+        with span('forward', next(calls)), torch.inference_mode():
             return model(batch)['point_out']
     return forward
 
@@ -184,11 +195,13 @@ def make_eval_step(cfg, spec: ModelSpec, model: torch.nn.Module,
     criterion = build_criterion(cfg) if with_loss else ()
     aux_w = float(cfg.MODEL.AUX_LOSS_WEIGHT)
     nc = spec.num_classes
+    calls = itertools.count()
 
     def eval_step(batch):
         model.eval()
         with torch.inference_mode():
-            out = model(batch)
+            with span('forward', next(calls)):
+                out = model(batch)
             point_out = out['point_out']
             preds = point_out.argmax(dim=-1).reshape(-1)
             labels = batch['point_labels'].reshape(-1)

@@ -22,6 +22,7 @@ from torch import nn
 
 from ..ops.scatter import segment_max, segment_mean
 from ..ops.sparse_conv import Rulebook, apply_subm
+from ..utils.profiling import span
 from .norm import MaskedBatchNorm
 
 
@@ -137,5 +138,7 @@ class SALayer(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(27, channels, 1))
 
     def forward(self, features, rulebook: Rulebook, mask):
-        gate = apply_subm(features, rulebook, self.kernel, mask, compute_dtype=features.dtype)
+        with span('sparse_conv'):
+            gate = apply_subm(features, rulebook, self.kernel, mask,
+                              compute_dtype=features.dtype)
         return features * torch.sigmoid(gate)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sparse_conv import Rulebook, apply_subm
+from ..utils.profiling import span
 from .layers import dense, dropout
 from .norm import MaskedBatchNorm
 
@@ -53,8 +54,9 @@ class OCRLayer(nn.Module):
         self._ProjectBNReLU_4 = _ProjectBNReLU(2 * mid_channels, in_channels)
 
     def forward(self, features, probs, rulebook: Rulebook, mask, rng=None):
-        feats = apply_subm(features, rulebook, self.transform_kernel, mask,
-                           compute_dtype=features.dtype)
+        with span('sparse_conv'):
+            feats = apply_subm(features, rulebook, self.transform_kernel, mask,
+                               compute_dtype=features.dtype)
         feats = F.relu(self.MaskedBatchNorm_0(feats, mask))
 
         # soft class-region pooling: softmax over each sample's voxels per class

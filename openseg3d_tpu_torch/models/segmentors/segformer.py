@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ...ops.sparse_conv import SparseTensor
+from ...utils.profiling import span
 from ..backbones.point_transformer import PointTransformer, build_window_plans
 from ..backbones.sparse_unet import build_unet_plans
 from .common import (ModelSpec, PointBranch, SegmentorHead, build_deep_fusion,
@@ -37,14 +38,21 @@ class Segformer(nn.Module):
             raise ValueError('a training forward needs a torch.Generator (rng) for '
                              'its dropout and stochastic depth')
         spec = self.spec
-        point_per, voxel_feats, cur_mask = self.PointBranch_0(batch)
+        with span('point_branch'):
+            point_per, voxel_feats, cur_mask = self.PointBranch_0(batch)
         st = SparseTensor(features=voxel_feats, coords=batch['voxel_coords'],
                           spatial_shape=spec.spatial_shape)
-        plans = build_unet_plans(st, spec.capacities)
-        window_parts, _ = build_window_plans(plans, spec)
-        out = self.PointTransformer_0(voxel_feats, plans, window_parts, rng)
-        point_out = fuse_and_classify(spec, batch, point_per, out['voxel_features'], cur_mask,
-                                      self.SegmentorHead_0, self.DeepFusionBlock_0, rng)
+        with span('structure'):
+            with span('structure.rulebooks'):
+                plans = build_unet_plans(st, spec.capacities)
+            with span('structure.windows'):
+                window_parts, _ = build_window_plans(plans, spec)
+        with span('backbone'):
+            out = self.PointTransformer_0(voxel_feats, plans, window_parts, rng)
+        with span('head'):
+            point_out = fuse_and_classify(spec, batch, point_per, out['voxel_features'],
+                                          cur_mask, self.SegmentorHead_0,
+                                          self.DeepFusionBlock_0, rng)
         return {
             'point_out': point_out,
             'voxel_out': out['voxel_out'],

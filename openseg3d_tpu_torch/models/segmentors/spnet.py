@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ...ops.sparse_conv import SparseTensor
+from ...utils.profiling import span
 from ..backbones.sparse_unet import SparseUnet, build_unet_plans
 from .common import (ModelSpec, PointBranch, SegmentorHead, build_deep_fusion,
                      fuse_and_classify)
@@ -35,13 +36,18 @@ class SPNet(nn.Module):
             raise ValueError('a training forward needs a torch.Generator (rng) for '
                              'its dropout')
         spec = self.spec
-        point_per, voxel_feats, cur_mask = self.PointBranch_0(batch)
+        with span('point_branch'):
+            point_per, voxel_feats, cur_mask = self.PointBranch_0(batch)
         st = SparseTensor(features=voxel_feats, coords=batch['voxel_coords'],
                           spatial_shape=spec.spatial_shape)
-        plans = build_unet_plans(st, spec.capacities)
-        out = self.SparseUnet_0(voxel_feats, plans, rng)
-        point_out = fuse_and_classify(spec, batch, point_per, out['voxel_features'], cur_mask,
-                                      self.SegmentorHead_0, self.DeepFusionBlock_0, rng)
+        with span('structure'), span('structure.rulebooks'):
+            plans = build_unet_plans(st, spec.capacities)
+        with span('backbone'):
+            out = self.SparseUnet_0(voxel_feats, plans, rng)
+        with span('head'):
+            point_out = fuse_and_classify(spec, batch, point_per, out['voxel_features'],
+                                          cur_mask, self.SegmentorHead_0,
+                                          self.DeepFusionBlock_0, rng)
         return {
             'point_out': point_out,
             'voxel_out': out['voxel_out'],

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sparse_conv import Rulebook, apply_subm
+from ..utils.profiling import span
 from .layers import FlattenSELayer, SALayer
 from .norm import MaskedBatchNorm
 
@@ -36,7 +37,8 @@ class SparseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x, rulebook: Rulebook, out_mask):
-        y = apply_subm(x, rulebook, self.kernel, out_mask, compute_dtype=x.dtype)
+        with span('sparse_conv'):
+            y = apply_subm(x, rulebook, self.kernel, out_mask, compute_dtype=x.dtype)
         if self.bias is not None:
             y = torch.where(out_mask[..., None], y + self.bias.to(y.dtype), 0)
         return y

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.attention import window_attention_packed, window_attention_packed_train
 from ..ops.window import WindowPartition, permute_rows, positional_embedding
+from ..utils.profiling import span
 from .layers import dense, dropout
 
 # flax nn.LayerNorm's default epsilon (torch's default is 1e-5)
@@ -124,7 +125,8 @@ class WindowAttention(nn.Module):
         q = (_head_l2norm(qk[..., :c], h) * scale_c).to(dt)
         k = _head_l2norm(qk[..., c:], h).to(dt)
 
-        big = permute_rows(torch.cat([q, k, val], dim=-1), inv_idx, comb)  # [B, S, 3C]
+        with span('window_permute'):
+            big = permute_rows(torch.cat([q, k, val], dim=-1), inv_idx, comb)  # [B, S, 3C]
         offs = level_offsets(self.levels)
         if self.training:
             # one int32 seed per level for the attention dropout
@@ -137,13 +139,15 @@ class WindowAttention(nn.Module):
             bias2 = biases[li].reshape(b * w, t).contiguous()
             # true window count per sample: windows past it are padding
             nw = torch.clamp(part.shifts[self.shift].num_windows[:, li], max=w).int()
-            if self.training:
-                o3 = window_attention_packed_train(seg, bias2, seeds[li:li + 1], nw, h,
-                                                   self.attn_drop)
-            else:
-                o3 = window_attention_packed(seg, bias2, h, nw)
+            with span('attention'):
+                if self.training:
+                    o3 = window_attention_packed_train(seg, bias2, seeds[li:li + 1], nw, h,
+                                                       self.attn_drop)
+                else:
+                    o3 = window_attention_packed(seg, bias2, h, nw)
             outs.append(o3.reshape(b, w * t, c))
-        out = permute_rows(torch.cat(outs, dim=1), comb, inv_idx)    # [B, V, C]
+        with span('window_permute'):
+            out = permute_rows(torch.cat(outs, dim=1), comb, inv_idx)    # [B, V, C]
         return dense(self.out_proj, out.to(dt))
 
 

@@ -12,18 +12,21 @@ cannot shadow the standard library's ``profile`` when its folder is on
 (kernel build and first launches), then ``--steps`` steps under
 ``torch.profiler``, each in a ``profile_step#i`` range, and prints
 ``utils.profiling.analyze``'s report: device ms a step in all, by bucket,
-the top operations, and with ``--by_module`` by module. The last line is
-the same numbers as one JSON object. The chrome trace is kept in
-``--trace_dir``; ``--analyze_only`` reads it again.
+the top operations, by innermost range, and on the card the idle gaps by
+program span. The last line is the same numbers as one JSON object. The
+chrome trace is kept in ``--trace_dir``; ``--analyze_only`` reads it again.
 
-``--by_module`` takes the place of the JAX tool's ``--hlo``/``--dump_hlo``
-join onto HLO provenance: ``record_function`` ranges around the segmentor,
-its submodules two levels down (the point branch, the stem ``ConvModule_0``,
-each stage's ``SWFormerBlock_s`` and downsample ``ConvModule_s``, the decoder's
-``UpBlock``s, the head), the structure build, each stage's window partition
-and the loss. A kernel goes to the innermost range around its launch; in
-the backward, to the autograd node that launched it. The ranges change no
-output.
+The program's own spans (``utils.profiling.span``: ``seg3d.structure``,
+``seg3d.loss``, ``seg3d.window_permute``, ...) record whenever the profiler
+does. ``--by_module`` takes the place of the JAX tool's ``--hlo``/``--dump_hlo``
+join onto HLO provenance: it adds ``record_function`` ranges around the
+segmentor and its submodules two levels down (the point branch, the stem
+``ConvModule_0``, each stage's ``SWFormerBlock_s`` and downsample
+``ConvModule_s``, the decoder's ``UpBlock``s, the head). A kernel goes to
+the innermost range or span around its launch; in the backward, to the
+autograd node that launched it. On the card the report also puts each of
+the device's idle gaps to the program span (or, in the backward, the
+autograd node) open when it began. The ranges change no output.
 
 ``--device cpu`` runs on the CPU (the plain versions; its "device" events
 are the leaf operators), for tests; on ``cuda`` (the default) a trace
@@ -57,8 +60,8 @@ def parse_args(argv=None):
     ap.add_argument('--analyze_only', action='store_true',
                     help='just re-read the trace in --trace_dir')
     ap.add_argument('--by_module', action='store_true',
-                    help='record_function ranges around the modules, the structure build, '
-                         'the window partitions and the loss; time by innermost range')
+                    help='record_function ranges around the modules two levels down; time '
+                         'by innermost range or program span')
     ap.add_argument('--image_feature', action='store_true',
                     help='enable DATASET.USE_IMAGE_FEATURE (DeepFusion)')
     ap.add_argument('--device', default='cuda',
@@ -66,26 +69,6 @@ def parse_args(argv=None):
     # the JAX bench's flags that this tool fixes
     ap.set_defaults(batch_size=1, stage_ratios='', losses='')
     return ap.parse_args(argv)
-
-
-@contextlib.contextmanager
-def module_annotations(model):
-    """The ranges of --by_module: the model's modules two levels down, the
-    structure build, each stage's window partition, the loss."""
-    from .. import engine
-    from ..models.backbones import point_transformer
-    from ..models.segmentors import segformer, spnet
-    from ..utils.profiling import annotate, module_ranges
-
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(module_ranges(model))
-        for mod in (segformer, spnet):
-            stack.enter_context(annotate(mod, 'build_unet_plans', 'structure'))
-        # build_window_plans partitions the 4 stages in order
-        stack.enter_context(annotate(point_transformer, 'batched_window_partition',
-                                     lambda i: f'window_partition_{i % 4}'))
-        stack.enter_context(annotate(engine, 'compute_loss', 'loss'))
-        yield
 
 
 def main(argv=None) -> dict:
@@ -131,7 +114,7 @@ def _profile(args, path) -> dict:
             with record_function(f'{profiling.STEP_RANGE}{i}'):
                 step()
 
-    with module_annotations(model) if args.by_module else contextlib.nullcontext():
+    with profiling.module_ranges(model) if args.by_module else contextlib.nullcontext():
         events, wall = profiling.trace(steps, device.type, path)
     cpu = device.type == 'cpu'
     if not cpu and not any(e.get('cat') == 'kernel' for e in events):

@@ -14,12 +14,16 @@ them) stand in for them, so that the same report comes out of a CPU run.
     1-NN search and combine, B3), then gather, index_add (scatter), sort,
     gemm, reduce, copy, elementwise, memset, collective (NCCL) and other;
   * the top operations by device time, with their counts;
-  * by module: each event goes to the innermost range around its launch,
-    the ``record_function`` ranges that ``module_ranges`` and ``annotate``
-    open around the model's submodules and the structure functions, and in
-    the backward the autograd node that launched it
-    (``autograd::engine::evaluate_function: <node>``).
+  * by module: each event goes to the innermost range around its launch:
+    the program's own spans (``span``), the ``record_function`` ranges that
+    ``module_ranges`` opens around the model's submodules, and in the
+    backward the autograd node that launched it
+    (``autograd::engine::evaluate_function: <node>``);
+  * on the card, the device's idle gaps by the program span open when each
+    began (``idle_by_span``).
 
+``span`` is the program's own range at a layer boundary (``seg3d.<name>``):
+a ``record_function`` range while a profiler records, and nothing otherwise.
 Also here, used by ``chip_smoke.py`` as well: ``trace`` (one run under the
 profiler), ``busy_ms``, ``range_kernels``, ``named_kernels``, ``top_kernels``
 and ``kernel_name``.
@@ -35,12 +39,16 @@ import re
 import tempfile
 import time
 from collections import defaultdict
-from unittest import mock
+
+import torch.autograd.profiler as _autograd_profiler
 
 DEVICE_CATEGORIES = ('kernel', 'gpu_memcpy', 'gpu_memset')
 LAUNCH_CATEGORIES = ('cuda_runtime', 'cuda_driver')
 BACKWARD_NODE = 'autograd::engine::evaluate_function: '
 STEP_RANGE = 'profile_step#'
+SPAN_PREFIX = 'seg3d.'
+BACKWARD_RANGE = 'backward: '
+_NO_SPAN = contextlib.nullcontext()
 
 # (bucket, lower-case substrings of a kernel or operator name), first match
 # wins: the port's kernels first, then the library's by what they compute
@@ -57,6 +65,23 @@ BUCKETS = (
     ('copy', ('copy', 'catarray', 'aten::cat')),
     ('elementwise', ('elementwise',)),
 )
+
+
+def span(name: str, arg=None):
+    """The program's range at a layer boundary: while a profiler records, a
+    ``record_function`` range named ``seg3d.<name>`` (``seg3d.<name>#<arg>``
+    with `arg`: a ``record_function``'s own argument string does not reach
+    the chrome trace); otherwise one shared null context, so that a span
+    costs a flag read when nothing records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    name = SPAN_PREFIX + name if arg is None else f'{SPAN_PREFIX}{name}#{arg}'
+    return _autograd_profiler.record_function(name)
+
+
+def span_name(name: str) -> str:
+    """A range's name without the '#<arg>' that a span or step carries."""
+    return name.split('#', 1)[0]
 
 
 def kernel_name(mangled: str) -> str:
@@ -107,18 +132,22 @@ def load_trace(path: str) -> list:
         return json.load(f)['traceEvents']
 
 
+def _busy_intervals(events) -> list:
+    """The merged [start, end] µs intervals in which a kernel, copy or
+    memset ran."""
+    merged = []
+    for s, e in sorted((e['ts'], e['ts'] + e['dur']) for e in events
+                       if e.get('cat') in DEVICE_CATEGORIES):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
 def busy_ms(events) -> float:
     """Milliseconds during which at least one kernel, copy or memset ran."""
-    spans = sorted((e['ts'], e['ts'] + e['dur']) for e in events
-                   if e.get('cat') in DEVICE_CATEGORIES)
-    total, lo, hi = 0.0, None, None
-    for s, e in spans:
-        if hi is None or s > hi:
-            total += 0.0 if hi is None else hi - lo
-            lo, hi = s, e
-        else:
-            hi = max(hi, e)
-    return (total + (0.0 if hi is None else hi - lo)) / 1e3
+    return sum(e - s for s, e in _busy_intervals(events)) / 1e3
 
 
 def range_kernels(events, name):
@@ -199,7 +228,7 @@ def _ranges(events):
         if e.get('cat') == 'user_annotation' or (e.get('cat') == 'cpu_op'
                                                  and name.startswith(BACKWARD_NODE)):
             if name.startswith(BACKWARD_NODE):
-                name = 'backward: ' + name[len(BACKWARD_NODE):]
+                name = BACKWARD_RANGE + name[len(BACKWARD_NODE):]
             out.append((e['tid'], e['ts'], e['ts'] + e['dur'], name))
     return out
 
@@ -231,10 +260,40 @@ def _innermost_ranges(ranges, points):
     return out
 
 
+def idle_by_span(events) -> dict:
+    """{owner: ms}: each gap between the device's busy intervals, from its
+    first event to its last, put to the innermost program span (its '#arg'
+    cut) or autograd node open on the spans' thread when the gap began. Where
+    that is ``seg3d.backward`` (the host waits on the autograd engine), the
+    gap goes to the autograd node open then on another thread, if one is.
+    '(no span)' where nothing is open."""
+    busy = _busy_intervals(events)
+    gaps = [(a[1], b[0] - a[1]) for a, b in zip(busy, busy[1:])]
+    ranges = [r for r in _ranges(events)
+              if r[3].startswith(SPAN_PREFIX) or r[3].startswith(BACKWARD_RANGE)]
+    spans = [r for r in ranges if r[3].startswith(SPAN_PREFIX)]
+    if not spans:
+        return {}
+    main = spans[0][0]
+    owners = _innermost_ranges(ranges, [(main, t) for t, _ in gaps])
+    node_threads = sorted({r[0] for r in ranges if r[0] != main}, key=str)
+    waiting = [i for i, o in enumerate(owners) if o and span_name(o) == SPAN_PREFIX + 'backward']
+    for tid in node_threads:
+        found = _innermost_ranges(ranges, [(tid, gaps[i][0]) for i in waiting])
+        for i, node in zip(waiting, found):
+            if node and owners[i].startswith(SPAN_PREFIX):
+                owners[i] = node
+    out = defaultdict(float)
+    for owner, (_, length) in zip(owners, gaps):
+        out[span_name(owner) if owner else '(no span)'] += length / 1e3
+    return dict(out)
+
+
 def analyze(events, steps: int | None = None, top: int = 30, cpu: bool = False) -> dict:
     """Device ms per step of a trace: in all, by bucket, the top `top`
-    operations (ms and launches per step) and by module (innermost range of
-    the launch; '(no range)' outside every one). The steps are the
+    operations (ms and launches per step), by module (innermost range of
+    the launch; '(no range)' outside every one) and, on the card, the
+    device's idle ms by program span (``idle_by_span``). The steps are the
     ``profile_step#i`` ranges of the trace, or `steps` where it has none."""
     dev = device_events(events, cpu)
     ranges = _ranges(events)
@@ -251,7 +310,7 @@ def analyze(events, steps: int | None = None, top: int = 30, cpu: bool = False) 
         counts[name] += 1
         if owner is None or owner.startswith(STEP_RANGE):
             owner = '(no range)'
-        by_module[owner] += ms
+        by_module[span_name(owner) if owner.startswith(SPAN_PREFIX) else owner] += ms
 
     def per_step(d):
         return {k: v / n_steps for k, v in sorted(d.items(), key=lambda kv: -kv[1])}
@@ -265,6 +324,7 @@ def analyze(events, steps: int | None = None, top: int = 30, cpu: bool = False) 
         'by_bucket': per_step(by_bucket),
         'top': [[name, ms / n_steps, counts[name] / n_steps] for name, ms in top_ops],
         'by_module': per_step(by_module),
+        'idle_by_span': None if cpu else per_step(idle_by_span(events)),
     }
 
 
@@ -283,6 +343,11 @@ def report(result: dict, top: int = 30, modules: int = 40) -> None:
     print('== by module (ms a step, innermost range of the launch) ==')
     for k, v in itertools.islice(result['by_module'].items(), modules):
         print(f'  {v:9.3f}  {k[:100]}')
+    if result['idle_by_span'] is not None:
+        print(f'== device idle by program span (ms a step, '
+              f'{sum(result["idle_by_span"].values()):.3f} in all) ==')
+        for k, v in itertools.islice(result['idle_by_span'].items(), modules):
+            print(f'  {v:9.3f}  {k[:100]}')
 
 
 @contextlib.contextmanager
@@ -315,20 +380,3 @@ def module_ranges(model, depth: int = 2):
     finally:
         for h in handles:
             h.remove()
-
-
-@contextlib.contextmanager
-def annotate(owner, attr: str, name):
-    """While open, owner.attr (a function) runs inside a record_function
-    range: `name`, or name(i) for its i-th call from 0. Its results are its
-    own."""
-    from torch.profiler import record_function
-    fn = getattr(owner, attr)
-    calls = itertools.count()
-
-    def wrapped(*args, **kwargs):
-        with record_function(name(next(calls)) if callable(name) else name):
-            return fn(*args, **kwargs)
-
-    with mock.patch.object(owner, attr, wrapped):
-        yield

@@ -5,8 +5,9 @@
     model: one sweep, multi-sweep, cylinder, image features); ``main`` runs
     each mode on the CPU and prints one JSON line whose rate is its step time;
   * ``utils.profiling``: buckets and attribution of a hand-made trace;
-    ``tools.profile_step --device cpu`` gives a by-module table, the same
-    again from ``--analyze_only``, and its ranges change no output;
+    ``tools.profile_step --device cpu`` gives a by-module table with the
+    program's spans, the same again from ``--analyze_only``, and its ranges
+    change no output;
   * ``tools.measure_capacities``: per-stage voxel counts and per (stage,
     shift, level) window counts equal those of the JAX package's jitted
     ``build_downsample`` and ``window_coords`` on a 16384-point bench frame,
@@ -214,7 +215,8 @@ def test_profile_step_on_cpu_gives_a_by_module_table(tmp_path, capsys):
     mods = res['by_module']
     for name in ('PointBranch_0.PointEncoder_0', 'PointTransformer_0.ConvModule_0',
                  'PointTransformer_0.SWFormerBlock_3', 'PointTransformer_0.UpBlock_3',
-                 'SegmentorHead_0.LinearBNReLU_0', 'structure', 'window_partition_3'):
+                 'SegmentorHead_0.LinearBNReLU_0', 'seg3d.structure.rulebooks',
+                 'seg3d.structure.windows', 'seg3d.sparse_conv', 'seg3d.window_permute'):
         assert mods.get(name, 0) > 0, (name, sorted(mods))
     assert sum(mods.values()) == pytest.approx(res['device_ms_per_step'])
     again = profile_step.main(['--analyze_only', '--trace_dir', str(tmp_path)])
@@ -228,7 +230,7 @@ def test_profile_step_on_cpu_gives_a_by_module_table(tmp_path, capsys):
     model.eval()
     with torch.inference_mode():
         plain = model(batch)
-        with profile_step.module_annotations(model):
+        with profiling.module_ranges(model):
             ranged = model(batch)
     for k in plain:
         assert torch.equal(plain[k], ranged[k]), k
