@@ -19,7 +19,8 @@ Phases (each asserts or raises; nothing is caught):
      each kernel's registers and spills (ptxas); the bf16 tensor-core
      kernels (*_mma_kernel, 22: the eval kernel's and the train forward's 5
      (head width, key tile) pairs each, the one-pass backward's 4 and the
-     two-pass backward's 2 x 4) must not spill;
+     two-pass backward's 2 x 4; and the sparse conv's gather-GEMM and weight
+     gradient in every tile and unaligned) must not spill;
   3. kernel vs plain: the eval window-attention kernel (B1) against its plain
      PyTorch version at every (T, C) the default config's window levels give
      the 4 stages, in float32 (max abs error <= 1e-5) and bfloat16 (within
@@ -102,8 +103,22 @@ Phases (each asserts or raises; nothing is caught):
      compares loss and gradients; takes it once more and prints whether the
      gradients are bit-equal (no --deterministic); times 1 + 5 steps, with
      the peak memory; profiles one step of each; then one sparse conv of
-     each kind (subm, strided, inverse) at full size: its float32 dW from
-     bf16 inputs within 1e-5 of a float32 product of the same inputs;
+     each kind (subm, strided, inverse) at full size: its float32 dW (the
+     weight-gradient kernel) from bf16 inputs within 1e-5 of a float32
+     product of the same inputs;
+  4c. sparse-conv kernels: every conv of a bf16 Segformer and SPNet eval
+     forward on the bench frame, recorded as it ran: the gather-GEMM (S1)
+     forward and dx and the weight-gradient kernel (S2) in the tables'
+     tiles, each conv's forward and dx within 2**-6 of the plain path's
+     largest output and its dW within 1e-5 of max|dW| of a float32 product
+     of the same inputs, device ms (CUDA events) beside the least time of
+     each (benchmark/counts.conv_work, grad_work) and the plain path's ms,
+     and the share of (tile, offset) pairs and of 32-row dW steps with a
+     live pair (from the rulebook by torch ops); then every tile of each
+     kernel at every width, the fastest marked beside the table's
+     (ops/sparse_conv.GEMM_TABLE and GRAD_TABLE come from here). Every phase
+     that counts launches counts S1 and S2 too: one S1 a conv in an eval
+     forward, two S1 and one S2 a conv in a train step;
   5. small reference: a tiny float32 model on the GPU against the same model
      on the CPU (whose path tests/test_torch_segformer.py and
      tests/test_torch_train.py hold against the JAX package): the eval
@@ -1013,6 +1028,7 @@ def run_slice(cfg, device, expected_launches):
     from openseg3d_tpu_torch.models import swformer
     from openseg3d_tpu_torch.ops.attention import (window_attention_packed,
                                                    window_attention_packed_plain)
+    from openseg3d_tpu_torch.ops.sparse_conv import gather_gemm, weight_grad
     from openseg3d_tpu_torch.weights import init_weights
 
     batch, n_voxels = frame_batch(cfg, device)
@@ -1026,13 +1042,16 @@ def run_slice(cfg, device, expected_launches):
     plain_core = mock.patch.object(swformer, 'window_attention_packed',
                                    window_attention_packed_plain)
 
-    window_attention_packed.launches = 0
+    window_attention_packed.launches = gather_gemm.launches = weight_grad.launches = 0
     res = eval_step(batch)
     torch.cuda.synchronize()
     launches = window_attention_packed.launches
+    convs, n_convs = (gather_gemm.launches, weight_grad.launches), model_convs(cfg)
     print(f'kernel launches in one eval step: {launches} (config implies '
-          f'{expected_launches})', flush=True)
+          f'{expected_launches}); sparse conv S1, S2: {convs} (the model\'s convs '
+          f'{n_convs})', flush=True)
     assert launches == expected_launches, (launches, expected_launches)
+    assert convs == (n_convs, 0), convs
 
     logits = res['point_out']
     assert logits.shape == (1, cfg.RUNTIME.MAX_POINTS_PER_SAMPLE, spec.num_classes)
@@ -1170,6 +1189,187 @@ def check_conv_weight_grads(spec, batch):
     return errs
 
 
+def record_convs(cfg):
+    """Every sparse conv of one bf16 eval forward of `cfg`'s model (random
+    weights) on the bench frame: [(features, weights, rulebook, out_mask)]
+    as ``_SparseConv`` received them, in call order."""
+    import torch
+    from openseg3d_tpu_torch.engine import build_segmentor, make_forward
+    from openseg3d_tpu_torch.ops import sparse_conv as sc
+    from openseg3d_tpu_torch.weights import init_weights
+    device = torch.device('cuda')
+    batch, _ = frame_batch(cfg, device)
+    model, _ = build_segmentor(cfg, device)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.eval()
+    calls, apply = [], sc._SparseConv.apply
+
+    def recording(features, weights, rulebook, out_mask, compute_dtype):
+        calls.append((features.to(compute_dtype), weights.detach(), rulebook, out_mask))
+        return apply(features, weights, rulebook, out_mask, compute_dtype)
+
+    with torch.no_grad(), mock.patch.object(sc._SparseConv, 'apply', recording):
+        make_forward(model)(batch)
+    torch.cuda.synchronize()
+    return calls
+
+
+def live_share(idx, mask_in, mask_out, rows):
+    """The share of (block of `rows` index columns, offset) pairs with a live
+    entry: an index >= 0 whose gathered row (mask_in, None for every row)
+    and whose own row (mask_out, None for every row) are live. What the
+    kernels' skips leave to run, from the rulebook by torch ops."""
+    import torch
+    b, k3, n = idx.shape
+    live = idx >= 0
+    if mask_in is not None:
+        live &= torch.gather(mask_in, 1, idx.clamp(min=0).reshape(b, -1).long()).reshape(b, k3, n)
+    if mask_out is not None:
+        live &= mask_out[:, None, :]
+    pad = -n % rows
+    live = torch.nn.functional.pad(live, (0, pad)).reshape(b, k3, -1, rows).any(-1)
+    return float(live.float().mean())
+
+
+def grad_work(pairs, cin, cout, rows_in, rows_out):
+    """(bytes, flops) of the weight gradient alone: the live input rows and
+    the cotangent rows read once, one int32 index a pair, the float32 dW
+    written; 2 x pairs x Cin x Cout flops. (benchmark/counts.conv_work
+    gives the forward, and the dx as a forward with the widths and rows
+    swapped.)"""
+    return ((rows_in * cin + rows_out * cout) * 2 + 4 * pairs + 4 * 27 * cin * cout,
+            2.0 * pairs * cin * cout)
+
+
+def check_sparse_conv_kernels(smi):
+    """Phase 4c: the gather-GEMM (S1) and weight-gradient (S2) kernels at
+    every main-path conv of both models on the bench frame. Per conv: the
+    forward and dx within 2**-6 of the plain path's largest output and dW
+    within 1e-5 of max|dW| of the plain path's product of the same bf16
+    values in float32 (TF32 off: no tensor-core accumulator over all the
+    rows); forward, dx and dW device ms (CUDA events) in the table's
+    tiles, each beside its least time (``benchmark.counts.conv_work`` for
+    the forward and, widths and rows swapped, dx; ``grad_work`` for dW) and
+    beside the plain path's ms (the row gather to device memory and one
+    product); and the share of (tile, offset) pairs that ran. Every tile of
+    each kernel is timed at every width and the fastest printed: the tables
+    GEMM_TABLE and GRAD_TABLE of ops/sparse_conv.py come from here. Returns
+    {model: sums and worst errors, 'tables': the fastest tiles}."""
+    import torch
+    from benchmark.counts import conv_work
+    from openseg3d_tpu_torch.config import cfg_from_file
+    from openseg3d_tpu_torch.ops import sparse_conv as sc
+    gemm_tiles, grad_tiles = sc.tile_shapes('gather_gemm'), sc.tile_shapes('weight_grad')
+    summary, tile_ms, grad_tile_ms = {}, {}, {}
+    parts = ('fwd', 'dx', 'dw')
+    for model in ('segformer', 'spnet'):
+        cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'),
+                            {'MODEL': {'SEGMENTOR': model}})
+        calls = record_convs(cfg)
+        gen = torch.Generator(device='cuda').manual_seed(11)
+        tot = {f'{k}{p}': 0.0 for k in ('', 'bound_', 'plain_') for p in parts}
+        tot.update(err_gemm=0.0, err_dw=0.0, convs=len(calls))
+        print(f'{model}: {len(calls)} convs; per conv: Cin Cout kind rows_out pairs | ms (bound, '
+              f'plain) forward | dx | dW | live (tile, offset) share forward, dx, dW steps',
+              flush=True)
+        for x, weights, rb, out_mask in calls:
+            b, vin, cin = x.shape
+            cout = weights.shape[-1]
+            in_mask = (rb.transpose >= 0).any(1)          # input rows with a pair
+            w = weights.bfloat16().contiguous()
+            wt = w.transpose(1, 2).contiguous()
+            g = torch.randn(b, out_mask.shape[1], cout, generator=gen, device='cuda').bfloat16()
+            dx_mask = out_mask if rb.submanifold else None
+            pairs = int(((rb.in_idx >= 0) & out_mask[:, None, :]).sum())
+            rows_in, rows_out = int(in_mask.sum()), int(out_mask.sum())
+            bounds = (bound(*conv_work(pairs, cin, cout, rows_in, rows_out))[0],
+                      bound(*conv_work(pairs, cout, cin, rows_out, rows_in))[0],
+                      bound(*grad_work(pairs, cin, cout, rows_in, rows_out))[0])
+            kernels = (functools.partial(sc.gather_gemm, x, rb.in_idx, w, dst_mask=out_mask),
+                       functools.partial(sc.gather_gemm, g, rb.transpose, wt, out_mask, dx_mask),
+                       functools.partial(sc.weight_grad, x, rb.transpose, g, out_mask))
+            plains = (functools.partial(sc.gather_gemm_plain, x, rb.in_idx, w, dst_mask=out_mask),
+                      functools.partial(sc.gather_gemm_plain, g, rb.transpose, wt, out_mask,
+                                        dx_mask),
+                      functools.partial(sc.weight_grad_plain, x, rb.transpose, g, out_mask))
+            refs = plains[:2] + (functools.partial(sc.weight_grad_plain, x.float(), rb.transpose,
+                                                   g.float(), out_mask),)
+            for i, (kernel, ref) in enumerate(zip(kernels, refs)):
+                got, want = kernel().float(), ref().float()
+                err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+                gate = 1e-5 if i == 2 else 2 ** -6
+                assert err <= gate, (parts[i], cin, cout, err)
+                key = 'err_dw' if i == 2 else 'err_gemm'
+                tot[key] = max(tot[key], err)
+            ms = [cuda_ms(f, 5) for f in kernels]
+            plain_ms = [cuda_ms(f, 3) for f in plains]
+            share = (live_share(rb.in_idx, None, out_mask, gemm_tiles[sc.gemm_tile(cin, cout)][0]),
+                     live_share(rb.transpose, out_mask, dx_mask,
+                                gemm_tiles[sc.gemm_tile(cout, cin)][0]),
+                     live_share(rb.transpose, out_mask, None, 32))
+            kind = 'subm' if rb.submanifold else ('strided' if rb.in_idx.shape[2] < vin
+                                                  else 'inverse')
+            print(f'  {cin:4d} {cout:4d} {kind:8s} {out_mask.shape[1]:6d} {pairs:8d} | '
+                  + ' | '.join(f'{m:.4f} ({bd:.4f}, {pm:.4f})'
+                               for m, bd, pm in zip(ms, bounds, plain_ms))
+                  + f' | {share[0]:.3f} {share[1]:.3f} {share[2]:.3f}', flush=True)
+            for i, p in enumerate(parts):
+                tot[p] += ms[i]
+                tot[f'bound_{p}'] += bounds[i]
+                tot[f'plain_{p}'] += plain_ms[i]
+            for t in range(len(gemm_tiles)):
+                tile_ms.setdefault((cin, cout), [0.0] * len(gemm_tiles))[t] += cuda_ms(
+                    functools.partial(sc.gather_gemm, x, rb.in_idx, w, dst_mask=out_mask,
+                                      tile=t), 3)
+                tile_ms.setdefault((cout, cin), [0.0] * len(gemm_tiles))[t] += cuda_ms(
+                    functools.partial(sc.gather_gemm, g, rb.transpose, wt, out_mask, dx_mask,
+                                      tile=t), 3)
+            for t in range(len(grad_tiles)):
+                grad_tile_ms.setdefault((cin, cout), [0.0] * len(grad_tiles))[t] += cuda_ms(
+                    functools.partial(sc.weight_grad, x, rb.transpose, g, out_mask, tile=t), 3)
+        print(f'{model} convs on the bench frame, sums (ms; bound, plain): '
+              + ', '.join(f'{p} {tot[p]:.3f} ({tot["bound_" + p]:.3f}, {tot["plain_" + p]:.3f})'
+                          for p in parts)
+              + f'; worst error forward/dx {tot["err_gemm"]:.3g} of max|out|, dW '
+                f'{tot["err_dw"]:.3g} of max|dW|; on {smi}', flush=True)
+        summary[model] = tot
+    best = {k: min(range(len(v)), key=v.__getitem__) for k, v in sorted(tile_ms.items())}
+    best_grad = {k: min(range(len(v)), key=v.__getitem__) for k, v in sorted(grad_tile_ms.items())}
+    for name, tiles, times, choice, table in (
+            ('gather-GEMM', gemm_tiles, tile_ms, best, sc.GEMM_TABLE),
+            ('weight gradient', grad_tiles, grad_tile_ms, best_grad, sc.GRAD_TABLE)):
+        print(f'{name} tiles {tiles} (rows, columns), ms summed over the convs of each width '
+              f'(fastest *, table\'s +):', flush=True)
+        for k, v in sorted(times.items()):
+            print(f'  {k}: ' + '  '.join(f'{t} {ms:.4f}' + '*' * (t == choice[k])
+                                         + '+' * (t == table.get(k)) for t, ms in enumerate(v)),
+                  flush=True)
+        print(f'{name} fastest: {choice}', flush=True)
+    summary['tables'] = {'gemm': best, 'grad': best_grad}
+    return summary
+
+
+def conv_kernel_rows(sums, launches):
+    """The `kernels` line's rows of S1 and S2, which replace no TPU kernel
+    (the JAX package composes the sparse conv in XLA): `launches` counted in
+    the main path's train step (phase 4b), device ms, bound and plain ms
+    summed over every conv of the bench frame's forward (phase 4c: S1 the
+    forward and dx, S2 dW), and the worst error relative to the largest
+    output. No library runs this function (spconv has no build here)."""
+    rows = []
+    for name, n, parts, err in (('gather_gemm', launches['S1'], ('fwd', 'dx'), 'err_gemm'),
+                                ('weight_grad', launches['S2'], ('dw',), 'err_dw')):
+        rows.append({
+            'name': name, 'route': 'cuda', 'source': 'openseg3d_tpu_torch/csrc/sparse_conv.cu',
+            'replaces': None, 'launches': n, 'max_abs_err': None,
+            'max_err_of_largest': sums[err],
+            'ms': sum(sums[p] for p in parts),
+            'plain_ms': sum(sums[f'plain_{p}'] for p in parts),
+            'bound_ms': sum(sums[f'bound_{p}'] for p in parts),
+            'bound_by': 'bytes or operations, the larger per conv', 'library_ms': None})
+    return rows
+
+
 def b2b_paths(spec):
     """(B2b's launches a train step in one pass, in two passes, the keep
     bits' bytes a step): the passes as ops/attention.train_backward_shape
@@ -1199,7 +1399,7 @@ def run_train_slice(cfg, batch, expected_attention):
     from openseg3d_tpu_torch.ops.attention import (window_attention_train_backward,
                                                    window_attention_train_forward)
     from openseg3d_tpu_torch.ops.knn import nearest_point
-    from openseg3d_tpu_torch.ops.sparse_conv import apply_sparse_conv
+    from openseg3d_tpu_torch.ops.sparse_conv import apply_sparse_conv, gather_gemm, weight_grad
     from openseg3d_tpu_torch.ops.window import permute_rows
     from openseg3d_tpu_torch.weights import init_weights
 
@@ -1226,13 +1426,14 @@ def run_train_slice(cfg, batch, expected_attention):
     state = fresh_state()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
+    for c in counters + (gather_gemm, weight_grad):
         c.launches = 0
     for f in backwards:
         f.backwards = 0
     state, m = step(state, batch, seed=0)
     torch.cuda.synchronize()
     launches = [c.launches for c in counters]
+    conv_counts = {'S1': gather_gemm.launches, 'S2': weight_grad.launches}
     n_backwards = [f.backwards for f in backwards]
     print(f'train step launches: B2 forward {launches[0]}, B2 backward {launches[1]}, '
           f'B3 {launches[2]} (config implies {expected_attention}, {expected_attention}, 1); '
@@ -1241,6 +1442,10 @@ def run_train_slice(cfg, batch, expected_attention):
           f'peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
     assert launches == [expected_attention, expected_attention, 1], launches
     assert n_backwards == expected_backwards, (n_backwards, expected_backwards)
+    want_convs = conv_launches(cfg, steps=1)
+    print(f'train step sparse-conv launches: {conv_counts} (the model implies {want_convs})',
+          flush=True)
+    assert conv_counts == want_convs, (conv_counts, want_convs)
     loss, g_kernel = float(m['loss']), grads()
     assert m['grads_finite'] and torch.isfinite(m['loss']), m
     moved = {k: float((v.float() - initial[k].float()).abs().max())
@@ -1339,7 +1544,8 @@ def run_train_slice(cfg, batch, expected_attention):
     assert prof['index_add_bf16'][1] <= 1, prof
     assert [ranges[k][0] for k in ('b2f', 'b2b', 'b3')] == \
         [expected_attention, expected_attention, 1], ranges
-    return dict(launches=launches, backwards=n_backwards, loss=loss, plain_loss=plain_loss,
+    return dict(launches=launches, conv_launches=conv_counts, backwards=n_backwards, loss=loss,
+                plain_loss=plain_loss,
                 loss_rel=loss_rel, grad_rel=grad_rel, repeat_differ=len(differ),
                 step_ms=statistics.median(times), plain_step_ms=statistics.median(plain_times),
                 peak=peak, prof=prof, plain_prof=plain_prof, bits_bytes=bits_bytes,
@@ -1478,6 +1684,7 @@ def run_cli(smi, per_step):
     import math
     import statistics as st
     import torch
+    from openseg3d_tpu_torch.config import cfg_from_file
     from openseg3d_tpu_torch.data.synthetic import make_tree
     from openseg3d_tpu_torch.tools import eval as eval_tool
     from openseg3d_tpu_torch.tools import train as train_tool
@@ -1509,7 +1716,8 @@ def run_cli(smi, per_step):
         val_frames = max(frames // 4, 2) * (epochs // 2)
         # validation's eval step computes the loss too, aux-label 1-NN included
         want = {'B1': per_step * val_frames, 'B2f': per_step * steps,
-                'B2b': per_step * steps, 'B3': steps + val_frames}
+                'B2b': per_step * steps, 'B3': steps + val_frames,
+                **conv_launches(cfg_from_file(acc_cfg), val_frames, steps)}
         print(f'(a) learning run: {steps} steps + {val_frames} validation frames in {secs:.1f} s '
               f'on {smi}; launches {launches} (expected {want})', flush=True)
         assert launches == want, (launches, want)
@@ -1590,13 +1798,33 @@ def run_cli(smi, per_step):
 
 def model_counters():
     """{kernel: its wrapper}, each with the .launches counter its wrapper
-    adds one to where it launches the kernel."""
+    adds one to where it launches the kernel: the attention kernels, the
+    1-NN, and the sparse conv's gather-GEMM (S1) and weight gradient (S2)."""
     from openseg3d_tpu_torch.ops.attention import (window_attention_packed,
                                                    window_attention_train_backward,
                                                    window_attention_train_forward)
     from openseg3d_tpu_torch.ops.knn import nearest_point
+    from openseg3d_tpu_torch.ops.sparse_conv import gather_gemm, weight_grad
     return {'B1': window_attention_packed, 'B2f': window_attention_train_forward,
-            'B2b': window_attention_train_backward, 'B3': nearest_point}
+            'B2b': window_attention_train_backward, 'B3': nearest_point,
+            'S1': gather_gemm, 'S2': weight_grad}
+
+
+def model_convs(cfg):
+    """The sparse convs of cfg's model: its [27, Cin, Cout] kernels (the
+    model built on the host)."""
+    from openseg3d_tpu_torch.engine import build_segmentor
+    model, _ = build_segmentor(cfg, device='cpu')
+    return sum(p.ndim == 3 and p.shape[0] == 27 for p in model.parameters())
+
+
+def conv_launches(cfg, forwards=0, steps=0):
+    """{'S1': ..., 'S2': ...}, the sparse-conv kernels' launches in
+    `forwards` eval forwards and `steps` train steps of cfg's bf16 model: a
+    gather-GEMM a conv in every forward, and in a step's backward one more
+    (dx: every conv's input needs its gradient) and one weight gradient."""
+    n = model_convs(cfg)
+    return {'S1': n * (forwards + 2 * steps), 'S2': n * steps}
 
 
 def check_host_voxelizer(smi):
@@ -1713,6 +1941,7 @@ def run_variant(label, cfg, batch, smi, timed=True, index_adds=None):
     attention = (sum(d * len(lv) for d, lv in zip(spec.depths, stage_level_specs(spec)))
                  if segformer else 0)
     convs = sum(isinstance(m, (SparseConv, OCRLayer)) for m in model.modules())
+    assert convs == model_convs(cfg), convs
     valid = batch['point_mask'] & batch['cur_point_mask']
     out = dict(points=int(valid.sum()), history=int((batch['point_mask'] & ~valid).sum()),
                voxels=int(batch['voxel_mask'].sum()), convs=convs)
@@ -1722,7 +1951,8 @@ def run_variant(label, cfg, batch, smi, timed=True, index_adds=None):
     res = make_eval_step(cfg, spec, model)(batch)
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
-    assert launches == {'B1': attention, 'B2f': 0, 'B2b': 0, 'B3': 0}, launches
+    assert launches == {'B1': attention, 'B2f': 0, 'B2b': 0, 'B3': 0, 'S1': convs,
+                        'S2': 0}, launches
     logits = res['point_out']
     assert bool(torch.isfinite(logits).all()), label
     assert int(res['hist'].sum()) == out['points'], (int(res['hist'].sum()), out['points'])
@@ -1742,8 +1972,8 @@ def run_variant(label, cfg, batch, smi, timed=True, index_adds=None):
           f'{out["voxels"]} voxels; eval launches {launches}; train step launches '
           f'{train_launches}, gather-only backwards (conv, permute_rows) {backwards}, model '
           f'convs {convs}; loss {float(m["loss"]):.6g}', flush=True)
-    assert train_launches == {'B1': 0, 'B2f': attention, 'B2b': attention, 'B3': 1}, \
-        train_launches
+    assert train_launches == {'B1': 0, 'B2f': attention, 'B2b': attention, 'B3': 1,
+                              'S1': 2 * convs, 'S2': convs}, train_launches
     assert backwards == (convs, 2 * sum(spec.depths) if segformer else 0), backwards
     assert m['grads_finite'] and bool(torch.isfinite(m['loss'])), m
     out.update(eval_launches=launches, train_launches=train_launches, backwards=backwards,
@@ -1851,18 +2081,21 @@ def run_spnet_learning(smi):
     width and capacity, bf16) as phase 7a: 32 synthetic frames, batch 1, 4
     epochs, validation every 2: finite losses, the last epoch's mean logged
     loss below the first's, final validation mIoU >= 0.15, and B3 launched
-    once per train step and validation frame (SPNet has no attention)."""
+    once per train step and validation frame (SPNet has no attention), the
+    sparse-conv kernels as conv_launches counts them."""
     import math
     import torch
+    from openseg3d_tpu_torch.config import cfg_from_file
     from openseg3d_tpu_torch.tools import train as train_tool
     frames, epochs = 32, 4
+    cfg_file = os.path.join(REPO, 'configs', 'synthetic_accuracy_spnet.yaml')
     counters = model_counters()
     for c in counters.values():
         c.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         hist = train_tool.main([
-            '--cfg_file', os.path.join(REPO, 'configs', 'synthetic_accuracy_spnet.yaml'),
+            '--cfg_file', cfg_file,
             '--synthetic', '--synthetic_frames', str(frames), '--batch_size', '1',
             '--epochs', str(epochs), '--eval_epoch_interval', '2', '--num_workers', '4',
             '--log_iter_interval', '4', '--seed', '100', '--save_dir', tmp])
@@ -1871,7 +2104,8 @@ def run_spnet_learning(smi):
     steps = frames * epochs
     val_frames = max(frames // 4, 2) * (epochs // 2)
     launches = {k: c.launches for k, c in counters.items()}
-    want = {'B1': 0, 'B2f': 0, 'B2b': 0, 'B3': steps + val_frames}
+    want = {'B1': 0, 'B2f': 0, 'B2b': 0, 'B3': steps + val_frames,
+            **conv_launches(cfg_from_file(cfg_file), val_frames, steps)}
     losses = {e: [r[3] for r in hist['train'] if r[0] == e] for e in range(1, epochs + 1)}
     first, last = statistics.mean(losses[1]), statistics.mean(losses[epochs])
     mious = [m for _, m in hist['val']]
@@ -2503,7 +2737,8 @@ def run_data_parallel(smi, device):
         assert a['finite'] and b['finite'], res
         assert abs(a['loss'] - ref_loss) <= DP_TOL * abs(ref_loss), (a['loss'], ref_loss)
         assert abs(b['loss'] - bf16_loss) <= DP_BF16_LOSS_RTOL * abs(bf16_loss), (b, bf16_loss)
-        assert b['launches'] == {'B1': 0, 'B2f': 105, 'B2b': 105, 'B3': 1}, b['launches']
+        assert b['launches'] == {'B1': 0, 'B2f': 105, 'B2b': 105, 'B3': 1, 'S1': 40,
+                                 'S2': 20}, b['launches']
         assert b['backwards'] == [20, 36], b['backwards']
     assert len({res['f32']['digest'] for res in ranks}) == 1, 'ranks hold other parameters'
     assert after_err[0] <= DP_TOL, after_err
@@ -2570,7 +2805,8 @@ def dice_focal_step(cfg, batch):
           f'{float(m["loss"]):.6g}, gradients finite {m["grads_finite"]}, launches {launches}',
           flush=True)
     assert m['grads_finite'] and math.isfinite(float(m['loss'])), m
-    assert launches == {'B1': 0, 'B2f': 105, 'B2b': 105, 'B3': 1}, launches
+    assert launches == {'B1': 0, 'B2f': 105, 'B2b': 105, 'B3': 1,
+                        **conv_launches(cfg, steps=1)}, launches
     del state
     torch.cuda.empty_cache()
 
@@ -2712,14 +2948,17 @@ def rest_against_cpu(smi, cfg, batch):
 
 # phase H: the bench's calls a run (the first, then --iters), and the
 # launches a step of each of its runs (the config's 105 attention levels
-# and layers; B3 once a step with the loss)
+# and layers; B3 once a step with the loss; S1 once a conv in a forward and
+# once more in a backward, S2 once a conv in a backward: Segformer's 20
+# convs, SPNet's 43)
 BENCH_ITERS = 5
 BENCH_RUNS = (
-    ('Segformer infer', ['--mode', 'infer'], {'B1': 105}),
-    ('Segformer train_fwd', ['--mode', 'train_fwd'], {'B2f': 105, 'B3': 1}),
-    ('Segformer train', ['--mode', 'train'], {'B2f': 105, 'B2b': 105, 'B3': 1}),
-    ('SPNet train', ['--mode', 'train', '--segmentor', 'spnet'], {'B3': 1}),
-    ('Segformer+DeepFusion infer', ['--mode', 'infer', '--image_feature'], {'B1': 105}),
+    ('Segformer infer', ['--mode', 'infer'], {'B1': 105, 'S1': 20}),
+    ('Segformer train_fwd', ['--mode', 'train_fwd'], {'B2f': 105, 'B3': 1, 'S1': 20}),
+    ('Segformer train', ['--mode', 'train'],
+     {'B2f': 105, 'B2b': 105, 'B3': 1, 'S1': 40, 'S2': 20}),
+    ('SPNet train', ['--mode', 'train', '--segmentor', 'spnet'], {'B3': 1, 'S1': 86, 'S2': 43}),
+    ('Segformer+DeepFusion infer', ['--mode', 'infer', '--image_feature'], {'B1': 105, 'S1': 20}),
 )
 # the kernels of a Segformer train step as the profiler names them, and their
 # launches a step: B2f; B2b's one-pass kernel, or its dq pass and dk/dv pass
@@ -2780,7 +3019,7 @@ def run_measuring_tools(smi, b2b_split):
           f'device ms a step (busy {prof["busy_ms_per_step"]:.3f}), by bucket '
           f'{ {k: round(v, 3) for k, v in prof["by_bucket"].items()} }, launches {launches} in '
           f'3 steps, on {smi}', flush=True)
-    assert launches == {'B1': 0, 'B2f': 315, 'B2b': 315, 'B3': 3}, launches
+    assert launches == {'B1': 0, 'B2f': 315, 'B2b': 315, 'B3': 3, 'S1': 120, 'S2': 60}, launches
     one_pass, two_pass = b2b_split
     for part, per_step in PROFILED_KERNELS.items():
         if per_step is None:
@@ -2811,6 +3050,40 @@ def run_measuring_tools(smi, b2b_split):
 
 
 
+def check_build():
+    """Phase 2: every kernel source built at once, each kernel's registers
+    and spills (ptxas) printed; the bf16 tensor-core kernels must not
+    spill, and the gate must have seen each of them."""
+    from openseg3d_tpu_torch.ops import _build
+    from openseg3d_tpu_torch.ops.sparse_conv import tile_shapes
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    print(f'built {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s')
+    mma_kernels, conv_kernels = set(), []
+    for name, (path, seconds, log) in built.items():
+        print(f'  {path.relative_to(REPO)}: ptxas registers, spill stores / loads (bytes)')
+        for kernel, regs, stores, loads in ptxas_usage(log):
+            print(f'    {kernel:48s} {regs:4d}  {stores:4d} / {loads:4d}')
+            # the tensor-core (bf16) kernels must not spill
+            if '_mma_kernel' in kernel:
+                if name == 'sparse_conv':
+                    conv_kernels.append(kernel)
+                else:
+                    mma_kernels.add(kernel)
+                assert stores == loads == 0, (kernel, stores, loads)
+    # every bf16 tensor-core kernel was seen by the gate: the one-pass and
+    # two two-pass train backward kernels at head widths 6, 12, 24 and 48,
+    # and the eval kernel and the train forward, each at its 5 (head width,
+    # key tile) pairs; the sparse conv's two kernels in every tile the
+    # library defines and their unaligned instantiation (ptxas names them
+    # without their tile)
+    assert len(mma_kernels) == 22, sorted(mma_kernels)
+    gemm, grad = tile_shapes('gather_gemm'), tile_shapes('weight_grad')
+    print(f'  sparse conv tiles (rows, columns): gather-GEMM {gemm}, weight gradient {grad}')
+    assert sorted(conv_kernels) == (['gather_gemm_mma_kernel'] * (len(gemm) + 1)
+                                    + ['weight_grad_mma_kernel'] * (len(grad) + 1)), conv_kernels
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -2822,7 +3095,6 @@ def main() -> int:
     from openseg3d_tpu_torch.models.backbones.point_transformer import (CHANNELS,
                                                                         stage_level_specs)
     from openseg3d_tpu_torch.models.segmentors.common import ModelSpec
-    from openseg3d_tpu_torch.ops import _build
 
     # 1. device
     device = torch.device('cuda:0')
@@ -2839,23 +3111,7 @@ def main() -> int:
     host_vox = check_host_voxelizer(smi)
 
     # 2. build, every source at once
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    print(f'built {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s')
-    mma_kernels = set()
-    for name, (path, seconds, log) in built.items():
-        print(f'  {path.relative_to(REPO)}: ptxas registers, spill stores / loads (bytes)')
-        for kernel, regs, stores, loads in ptxas_usage(log):
-            print(f'    {kernel:48s} {regs:4d}  {stores:4d} / {loads:4d}')
-            # the tensor-core (bf16) kernels must not spill
-            if '_mma_kernel' in kernel:
-                mma_kernels.add(kernel)
-                assert stores == loads == 0, (kernel, stores, loads)
-    # every bf16 tensor-core kernel was seen by the gate: the one-pass and
-    # two two-pass train backward kernels at head widths 6, 12, 24 and 48,
-    # and the eval kernel and the train forward, each at its 5 (head width,
-    # key tile) pairs
-    assert len(mma_kernels) == 22, sorted(mma_kernels)
+    check_build()
 
     # 3. kernel vs plain at the main path's shapes
     cfg = cfg_from_file(os.path.join(REPO, 'configs', 'waymo_one_sweep.yaml'))
@@ -2923,6 +3179,11 @@ def main() -> int:
               f'{p["wall_ms"]:.3f} ms wall time (and {p["busy_ms"] / med:.3f} of the '
               f'unprofiled median)', flush=True)
     check_conv_weight_grads(spec, batch)
+
+    # 4c. the sparse-conv kernels at every main-path conv of both models
+    t0 = time.perf_counter()
+    convs = check_sparse_conv_kernels(smi)
+    print(f'sparse conv kernel check: {time.perf_counter() - t0:.1f} s', flush=True)
 
     # 5. small references against the CPU path
     check_small_reference(device)
@@ -3079,7 +3340,8 @@ def main() -> int:
         'bound_ms': y['bound_ms'],
         'bound_by': y['bound_by'],
         'library_ms': y['library_ms'],
-    } for name, src, where, n, err, ms, plain, y in rows]}))
+    } for name, src, where, n, err, ms, plain, y in rows] + conv_kernel_rows(
+        convs['segformer'], tr['conv_launches'])}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}))
     return 0

@@ -25,7 +25,7 @@ CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-KERNELS = ('window_attention', 'window_attention_train', 'nearest_point')
+KERNELS = ('window_attention', 'window_attention_train', 'nearest_point', 'sparse_conv')
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

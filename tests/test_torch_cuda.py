@@ -2,8 +2,8 @@
 window attention (eval, B1), the unpacked window attention (B4), the train
 attention forward and backward (B2),
 the 1-NN search (B3, with its split search's edge cases) and the sparse
-conv's weight-gradient product (float32 sums of bf16 operands). Every test here needs an NVIDIA GPU with nvcc and
-skips without one; on the GPU machine run them with
+conv's gather-GEMM and weight-gradient kernels. Every test here needs an
+NVIDIA GPU with nvcc and skips without one; on the GPU machine run them with
 
     python3 -m pytest tests/test_torch_cuda.py
 
@@ -21,8 +21,11 @@ its residual O). The dropout mask is the same hash in both, so these hold at
 drop rate 0.1 as at 0; the bits the bf16 forward stores equal the plain
 packer's to the bit, and the bf16 backward (no atomics) gives the same bits
 twice. The bf16 eval kernel in every block shape (16-, 32- and 64-row
-blocks) holds the same bound. 1-NN: indices equal. Weight-gradient product:
-within 1e-5 of the largest element of the exact (float64) sum.
+blocks) holds the same bound. 1-NN: indices equal. Sparse conv, against
+the exact (float64) sums of the same bf16 values: forward and dx (one
+rounding of a float32 sum to bf16) within 2**-8 |sum| + 2**-14 x the sum of
+the products' magnitudes (``gemm_bound``); dW within 1e-5 of its largest
+element, chip_smoke's gate; every kernel bit-equal on a rerun.
 """
 
 import pytest
@@ -40,6 +43,11 @@ from openseg3d_tpu_torch.ops.attention import (_launch_cuda, _launch_unpacked, a
                                                window_attention_train_backward,
                                                window_attention_train_forward)
 from openseg3d_tpu_torch.ops.knn import nearest_point, nearest_point_plain
+from openseg3d_tpu_torch.ops.scatter import take_rows_or_zero
+from openseg3d_tpu_torch.ops.sparse_conv import (DW_CHUNK, GEMM_TABLE, GRAD_TABLE, SparseTensor,
+                                                 apply_sparse_conv, build_downsample,
+                                                 build_subm_rulebook, gather_gemm, grad_splits,
+                                                 grad_tile, tile_shapes, weight_grad)
 
 NHEAD = 8
 
@@ -416,19 +424,239 @@ def test_nearest_point_matches_plain_with_ties_and_no_valid_point(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize('rows', [2048, 50000, 166400])
 def test_weight_gradient_product_sums_in_float32(cuda, rows):
-    """The sparse conv's dW product (x^T G, bf16 operands, float32 result)
-    within 1e-5 of max|dW| of the exact sum (float64 of the same bf16
-    values; each product of two bf16 values is exact in float32), at the
-    main path's longest contraction (166400 rows)."""
-    from openseg3d_tpu_torch.ops.sparse_conv import tn_float32
+    """The sparse conv's dW kernel (x^T G through the transposed rulebook,
+    bf16 operands, float32 result) within 1e-5 of max|dW| of the exact sum
+    (float64 of the same bf16 values; each product of two bf16 values is
+    exact in float32), at the main path's longest contraction (166400 rows
+    a sample): every row pairs with itself at every offset, so each dW[k] is
+    the whole x^T g."""
     gen = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn(rows, 96, generator=gen, device=cuda).bfloat16()
-    g = torch.randn(rows, 27 * 32, generator=gen, device=cuda).bfloat16()
-    got = tn_float32(x, g)
-    assert got.dtype == torch.float32
-    want = x.double().t() @ g.double()
+    x = torch.randn(1, rows, 96, generator=gen, device=cuda).bfloat16()
+    g = torch.randn(1, rows, 32, generator=gen, device=cuda).bfloat16()
+    tr = torch.arange(rows, dtype=torch.int32, device=cuda).expand(1, 27, rows).contiguous()
+    got = weight_grad(x, tr, g)
+    assert got.dtype == torch.float32 and got.shape == (27, 96, 32)
+    want = x[0].double().t() @ g[0].double()
     err = float((got.double() - want).abs().max()) / float(want.abs().max())
     assert err <= 1e-5, err
+
+
+# ---------------------------------------------------------------------------
+# sparse conv: the gather-GEMM and weight-gradient kernels
+# ---------------------------------------------------------------------------
+
+def conv_scene(device, seed, v=4608, grid=(10, 40, 40), fill=(0.25, 0.12), empty=()):
+    """Voxel coords [B, v, 3] in ascending key order with padding (-1) at the
+    end, as the voxelizer emits them: sample i keeps each cell of the grid
+    with probability fill[i] (samples in `empty` keep none), so rows share
+    most neighbours and some tiles hold a single live offset."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cells = torch.stack(torch.meshgrid(*[torch.arange(n, device=device) for n in grid],
+                                       indexing='ij'), -1).reshape(-1, 3).int()
+    coords = torch.full((len(fill), v, 3), -1, dtype=torch.int32, device=device)
+    for i, p in enumerate(fill):
+        if i in empty:
+            continue
+        keep = cells[torch.rand(len(cells), generator=gen, device=device) < p][:v]
+        coords[i, :len(keep)] = keep
+    return SparseTensor(None, coords, grid)
+
+
+def conv_cases(st):
+    """[(kind, rulebook, input mask, output mask)]: the subm conv, the
+    strided conv into the coarse level and the inverse conv back."""
+    plan = build_downsample(st, out_capacity=st.coords.shape[1] // 2)
+    coarse = plan.out_coords[..., 0] >= 0
+    return [('subm', build_subm_rulebook(st), st.mask, st.mask),
+            ('strided', plan.rule, st.mask, coarse),
+            ('inverse', plan.inv_rule, coarse, st.mask)]
+
+
+def gemm_exact(x, idx, w, src_mask=None, dst_mask=None):
+    """(the exact float64 gather-GEMM of the same bf16 values, the same sum
+    of the products' magnitudes)."""
+    b, k3, vo = idx.shape
+    x = x.double()
+    if src_mask is not None:
+        x = torch.where(src_mask[..., None], x, 0)
+    rows = take_rows_or_zero(x, idx.transpose(1, 2).reshape(b, vo * k3)).reshape(b, vo, -1)
+    w = w.double().reshape(-1, w.shape[-1])
+    exact, mag = rows @ w, rows.abs() @ w.abs()
+    if dst_mask is not None:
+        exact = torch.where(dst_mask[..., None], exact, 0)
+    return exact, mag
+
+
+def gemm_bound(exact, mag):
+    """bf16's rounding of the float32 sum (half a unit in the last of its 8
+    bits: 2**-8 |sum|) and the float32 sum's own error (2**-14 of the sum of
+    the products' magnitudes: the tensor cores' float32 accumulation over up
+    to 27 x 768 products)."""
+    return 2.0 ** -8 * exact.abs() + 2.0 ** -14 * mag
+
+
+def check_gemm(x, idx, w, src_mask=None, dst_mask=None, tile=None):
+    """The kernel twice (bit-equal, one launch each) against the exact sum;
+    masked rows exactly zero. Returns the output."""
+    before = gather_gemm.launches
+    got = gather_gemm(x, idx, w, src_mask, dst_mask, tile=tile)
+    again = gather_gemm(x, idx, w, src_mask, dst_mask, tile=tile)
+    torch.cuda.synchronize()
+    assert gather_gemm.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (x.shape[0], idx.shape[2], w.shape[2])
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    exact, mag = gemm_exact(x, idx, w, src_mask, dst_mask)
+    err = (got.double() - exact).abs()
+    assert bool((err <= gemm_bound(exact, mag)).all()), float(err.max())
+    if dst_mask is not None:
+        assert not got[~dst_mask].any()
+    return got
+
+
+def check_weight_grad(x, tr, g, src_mask, tile=None):
+    """dW twice (bit-equal, one launch each) within 1e-5 of max|dW| of the
+    exact sum, chip_smoke's gate."""
+    before = weight_grad.launches
+    got = weight_grad(x, tr, g, src_mask, tile=tile)
+    again = weight_grad(x, tr, g, src_mask, tile=tile)
+    torch.cuda.synchronize()
+    assert weight_grad.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (27, x.shape[2], g.shape[2])
+    assert torch.equal(got, again)
+    b, v, cin = x.shape
+    gm = torch.where(src_mask[..., None], g.double(), 0)
+    rows = take_rows_or_zero(gm, tr.transpose(1, 2).reshape(b, v * 27)).reshape(b * v, 27, -1)
+    want = torch.einsum('uc,ukn->kcn', x.double().reshape(b * v, cin), rows)
+    err = float((got.double() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    assert err <= 1e-5, err
+    return got
+
+
+def conv_operands(st, rb, in_mask, out_mask, cin, cout, seed):
+    """bf16 features (zero on padding rows, as the model's), weights and a
+    cotangent with values on masked rows too (the kernels must mask them)."""
+    gen = torch.Generator(device=in_mask.device).manual_seed(seed)
+    dev = in_mask.device
+    b = in_mask.shape[0]
+    x = torch.randn(b, in_mask.shape[1], cin, generator=gen, device=dev)
+    x = torch.where(in_mask[..., None], x, 0).bfloat16()
+    w = (torch.randn(27, cin, cout, generator=gen, device=dev) / (27 * cin) ** 0.5).bfloat16()
+    g = torch.randn(b, out_mask.shape[1], cout, generator=gen, device=dev).bfloat16()
+    return x, w, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cin,cout', sorted(set(GRAD_TABLE)) + [(6, 48), (6, 32), (96, 1)])
+def test_sparse_conv_kernels_match_exact_sums(cuda, cin, cout):
+    """Forward, dx and dW of every conv width the configurations build (and
+    the multi-sweep stem's Cin = 6, SALayer's Cout = 1) on submanifold,
+    strided and inverse rulebooks, each through the table's tiles."""
+    st = conv_scene(cuda, seed=cin + cout, v=4608 if cin * cout < 2 ** 17 else 2048)
+    for kind, rb, in_mask, out_mask in conv_cases(st):
+        x, w, g = conv_operands(st, rb, in_mask, out_mask, cin, cout, seed=cin)
+        check_gemm(x, rb.in_idx, w, dst_mask=out_mask)
+        dx_mask = in_mask if kind == 'subm' else None
+        dx = check_gemm(g, rb.transpose, w.transpose(1, 2).contiguous(), out_mask, dx_mask)
+        if kind == 'subm':
+            assert not dx[~in_mask].any()
+        check_weight_grad(x, rb.transpose, g, out_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cin,cout', [(64, 64), (96, 192), (768, 384), (256, 128)])
+def test_sparse_conv_every_tile_matches_exact_sums(cuda, cin, cout):
+    """Every tile of both kernels (what chip_smoke times) on the subm
+    rulebook holds the same bounds."""
+    st = conv_scene(cuda, seed=5, v=2048)
+    _, rb, mask, _ = conv_cases(st)[0]
+    x, w, g = conv_operands(st, rb, mask, mask, cin, cout, seed=6)
+    for tile in range(len(tile_shapes('gather_gemm'))):
+        check_gemm(x, rb.in_idx, w, dst_mask=mask, tile=tile)
+    for tile in range(len(tile_shapes('weight_grad'))):
+        check_weight_grad(x, rb.transpose, g, mask, tile=tile)
+
+
+@pytest.mark.cuda
+def test_sparse_conv_tables_name_the_kernels_tiles(cuda):
+    """Every table entry indexes a tile the library defines (its shapes
+    come from csrc/sparse_conv.cu, whose static_asserts hold each within 256
+    threads and 227 KB), a tile index past them is refused at launch, and
+    the weight gradient's float32 partials stay under 0.1 GB at every
+    width at the largest stage capacity of a batch of 2."""
+    from openseg3d_tpu_torch.config import cfg_from_file
+    from openseg3d_tpu_torch.models.backbones.sparse_unet import stage_capacities
+    gemm, grad = tile_shapes('gather_gemm'), tile_shapes('weight_grad')
+    assert all(r % 16 == 0 and c % 16 == 0 for r, c in gemm + grad), (gemm, grad)
+    assert set(GEMM_TABLE.values()) <= set(range(len(gemm)))
+    assert set(GRAD_TABLE.values()) <= set(range(len(grad)))
+    cfg = cfg_from_file('configs/waymo_one_sweep.yaml')
+    caps = stage_capacities(cfg.RUNTIME.MAX_VOXELS_PER_SAMPLE, cfg.RUNTIME.STAGE_CAPACITY_RATIOS)
+    chunks = 2 * -(-max(caps) // DW_CHUNK)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for cin, cout in GRAD_TABLE:
+        splits = grad_splits(chunks, cin, cout, grad_tile(cin, cout), sms)
+        assert 1 <= splits <= chunks
+        assert splits * 27 * cin * cout * 4 <= 0.1e9, (cin, cout, splits)
+    x = torch.zeros(1, 64, 16, dtype=torch.bfloat16, device=cuda)
+    idx = torch.full((1, 27, 64), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match='launch failed'):
+        gather_gemm(x, idx, torch.zeros(27, 16, 16, dtype=torch.bfloat16, device=cuda),
+                    tile=len(gemm))
+    with pytest.raises(ValueError, match='no weight-gradient tile'):
+        weight_grad(x, idx, torch.zeros(1, 64, 16, dtype=torch.bfloat16, device=cuda),
+                    tile=len(grad))
+
+
+@pytest.mark.cuda
+def test_sparse_conv_kernels_on_degenerate_rulebooks(cuda):
+    """An all-padding sample, a tile whose only live offset is the centre,
+    and a rulebook of only -1: exact zeros where nothing is gathered."""
+    st = conv_scene(cuda, seed=3, v=2048, empty=(1,))
+    for kind, rb, in_mask, out_mask in conv_cases(st):
+        x, w, g = conv_operands(st, rb, in_mask, out_mask, 64, 64, seed=4)
+        out = check_gemm(x, rb.in_idx, w, dst_mask=out_mask)
+        assert not out[1].any(), kind
+        check_weight_grad(x, rb.transpose, g, out_mask)
+    b, v = 2, 300
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(b, v, 32, generator=gen, device=cuda).bfloat16()
+    w = torch.randn(27, 32, 48, generator=gen, device=cuda).bfloat16()
+    g = torch.randn(b, v, 48, generator=gen, device=cuda).bfloat16()
+    centre = torch.full((b, 27, v), -1, dtype=torch.int32, device=cuda)
+    centre[:, 13, :70] = torch.arange(70, dtype=torch.int32, device=cuda)
+    assert not check_gemm(x, centre, w)[:, 70:].any()
+    mask = torch.ones(b, v, dtype=torch.bool, device=cuda)
+    check_weight_grad(x, centre, g, mask)
+    none = torch.full((b, 27, v), -1, dtype=torch.int32, device=cuda)
+    assert not check_gemm(x, none, w).any()
+    assert not check_weight_grad(x, none, g, mask).any()
+
+
+@pytest.mark.cuda
+def test_sparse_conv_autograd_runs_the_kernels(cuda):
+    """apply_sparse_conv on bf16 features on the card: the forward one
+    gather-GEMM launch, the backward one for dx and one weight-gradient
+    launch, and the gradients within the kernels' bounds of the exact sums;
+    float32 features run the plain path, uncounted."""
+    st = conv_scene(cuda, seed=9, v=2048)
+    kind, rb, in_mask, out_mask = conv_cases(st)[1]
+    x, w, g = conv_operands(st, rb, in_mask, out_mask, 48, 96, seed=10)
+    wp = w.float().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    before = (gather_gemm.launches, weight_grad.launches)
+    out = apply_sparse_conv(xp, rb, wp, out_mask, torch.bfloat16)
+    out.backward(g)
+    assert (gather_gemm.launches, weight_grad.launches) == (before[0] + 2, before[1] + 1)
+    exact, mag = gemm_exact(x, rb.in_idx, w, None, out_mask)
+    assert bool(((out.double() - exact).abs() <= gemm_bound(exact, mag)).all())
+    exact, mag = gemm_exact(g, rb.transpose, w.transpose(1, 2), out_mask)
+    assert bool(((xp.grad.double() - exact).abs() <= gemm_bound(exact, mag)).all())
+    assert wp.grad.dtype == torch.float32
+    check_weight_grad(x, rb.transpose, g, out_mask)
+    before = (gather_gemm.launches, weight_grad.launches)
+    x32 = x.float().requires_grad_(True)
+    apply_sparse_conv(x32, rb, w.float(), out_mask).backward(g.float())
+    assert (gather_gemm.launches, weight_grad.launches) == before
 
 
 def nearest_point_edge_cases(device, gen):
