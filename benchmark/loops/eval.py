@@ -9,7 +9,10 @@ back. The next frame goes in when the last one's labels are out, as
 through the ring. Set-up serves every ring frame once (warm-up).
 ``eval_frames_s`` is the frames completed over the window,
 ``eval_ms_p95`` the 95th percentile of every frame's latency in it, and the
-host span around voxelize, pad and copy gives ``host_prep_ms``.
+host span around voxelize, pad and copy gives ``host_prep_ms``. A traced
+run's readers get the same rate and percentile over the frames that ran
+untraced, outside the stretch from the profiler's start to its stop
+(``frames_s``, ``ms_p95``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from benchmark import check as compare
-from benchmark import frames, reference, spans, weights
+from benchmark import frames, spans, weights
 
 PROFILED_FRAMES = 10
 
@@ -77,13 +80,14 @@ def window(s: Session, seconds: float, profiler=None) -> dict:
     """Frames one after another for `seconds`; with a profiler, frames 2 to
     11 of the window run traced."""
     profiled = range(2, 2 + PROFILED_FRAMES) if profiler else range(0)
-    s.answers, latencies, preps = [], [], []
-    n = 0
+    s.answers, latencies, preps, untraced = [], [], [], []
+    n, traced_s = 0, 0.0
     t0 = time.perf_counter()
     s.setup_s = t0 - s.process_start
     while True:
         traced = n in profiled
         if profiler and n == profiled.start:
+            traced_from = time.perf_counter()
             profiler.start()
             ranges = spans.installed(s.model)
             ranges.__enter__()
@@ -94,14 +98,18 @@ def window(s: Session, seconds: float, profiler=None) -> dict:
         s.answers.append((ring_index, labels))
         if not traced:
             preps.append(prep)
+            untraced.append(latencies[-1])
         n += 1
         if profiler and n == profiled.stop:
             ranges.__exit__(None, None, None)
             profiler.stop()
+            traced_s = time.perf_counter() - traced_from
         if time.perf_counter() - t0 >= seconds and (not profiler or n >= profiled.stop):
             break
     elapsed = time.perf_counter() - t0
     s.host_prep_ms = float(np.mean(preps)) if preps else None
+    s.frames_s = len(untraced) / (elapsed - traced_s) if untraced else None
+    s.ms_p95 = float(np.percentile(untraced, 95)) if untraced else None
     s.profiled_ring = [i % len(s.ring) for i in profiled]
     return {'attempted': n, 'failed': 0, 'eval_frames_s': n / elapsed,
             'eval_ms_p95': float(np.percentile(latencies, 95)), 'setup_s': s.setup_s}
@@ -115,9 +123,9 @@ def release(s: Session) -> None:
 
 
 def reference_logits(s: Session, precision: str = 'float32') -> list:
-    """The reference's point logits of every ring frame; with the run's
-    trace flag, each frame's work records in s.records."""
-    run = s.run
+    """The configuration's reference's point logits of every ring frame;
+    with the run's trace flag, each frame's work records in s.records."""
+    run, reference = s.run, s.run.reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     probe = reference.Segmentor(reference.Spec(run.config))
@@ -166,4 +174,4 @@ def layer_context(s: Session, profiler, checked) -> dict:
     return {'events': profiler.events, 'window_ms': profiler.window_ms,
             'units': len(s.profiled_ring), 'records': records,
             'records_units': len(s.profiled_ring), 'train': False, 'device': s.device,
-            'host_prep_ms': s.host_prep_ms}
+            'host_prep_ms': s.host_prep_ms, 'frames_s': s.frames_s, 'ms_p95': s.ms_p95}

@@ -23,7 +23,7 @@ import time
 import torch
 
 from benchmark import check as compare
-from benchmark import frames, reference, spans, weights
+from benchmark import frames, spans, weights
 from benchmark.frames import seed_sequence
 
 FIRST_STEPS = 3
@@ -154,10 +154,10 @@ def release(s: Session) -> None:
 
 
 def reference_readings(s: Session, precision: str = 'float32', frame_batches=None) -> dict:
-    """The reference's three steps from the run's weights, batches and seeds,
-    at the learning rates it works out from the mix's schedule; with the
-    run's trace flag, its work records."""
-    run = s.run
+    """The configuration's reference's three steps from the run's weights,
+    batches and seeds, at the learning rates it works out from the mix's
+    schedule; with the run's trace flag, its work records."""
+    run, reference = s.run, s.run.reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     probe = reference.Segmentor(reference.Spec(run.config))

@@ -6,6 +6,35 @@ It imports neither JAX nor anything of the program: it is a frozen copy of
 the port's plain paths, takes the benchmark's raw points and seeded
 weights, voxelizes and builds its structure itself, and derives its
 dropout and drop-path masks from the same seeds as the program.
+
+It is the reference of every configuration file that names none. Another
+architecture brings its own as ``reference/<name>.py``, named by its
+configuration file's ``"reference"`` key and loaded by path
+(``run.load_reference``); it may import ``benchmark.reference.nn``,
+``.data``, ``.structure`` and ``.train`` by absolute name to share their
+plain layers, and imports neither JAX nor the program. The loops call these
+seven names of it and nothing else:
+
+- ``Spec(cfg)``: the model's static sizes, read from the program's config
+  dict as run.
+- ``Segmentor(spec)``: the model, a ``torch.nn.Module`` whose state dict has
+  the program's names and shapes (``weights.draw`` makes the seeded
+  weights from them).
+- ``build(cfg, weights, device)``: the model on `device` with the state
+  dict `weights`.
+- ``eval_logits(model, frame, cfg, device)``: the [n, num_classes] point
+  logits of one frame's n raw points (``frame['points']``), in eval mode.
+- ``train_steps(model, batches, cfg, seed, schedule)``: one train step a
+  batch of raw frames, with the program's dropout seed and the learning
+  rates the reference works out from the mix's `schedule`; returns
+  ``{'losses': [float], 'grads': {name: first step's gradient}, 'params':
+  {name: parameter after the last step}}``.
+- ``counting()``: a context that yields a list and fills it with the work
+  records of the calls inside (``counts.py`` reads them; an empty list
+  leaves the rooflines and ``mfu`` silent).
+- ``precision(name)``: a context in which the model computes in 'float32'
+  or rounds its matmul operands and activations to 'bf16' or 'fp8' (the
+  control).
 """
 
 from __future__ import annotations

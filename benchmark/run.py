@@ -8,8 +8,24 @@ traffic mix. Everything else is found by name: the configuration's file
 (``traffic/<mix>.json``), the loop the mix names (``loops/<loop>.py``), the
 limits of the comparison that decides ``correct`` (``limits/<config>.<loop>
 .json``) and, in a ``--trace 1`` run, one reader a per-layer metric
-(``metrics/<metric>.py``). A new configuration, mix, loop or metric is new
-files and new entries in ``BENCHMARK.json``: no file here changes.
+(``metrics/<metric>.py``). A configuration file holds the program's
+``config`` and may name its plain reference (``"reference": "<name>"``, the
+file ``reference/<name>.py``); without the key it is the package
+``benchmark.reference`` (Segformer and SPNet). A new configuration, mix,
+loop, metric or architecture is new files and new entries in
+``BENCHMARK.json``: no file here changes.
+
+A reference is a module with seven names, which the loops call and nothing
+else (``reference/__init__.py`` gives their contracts in full): ``Spec(cfg)``
+the static sizes; ``Segmentor(spec)`` the module, with the program's state
+dict names and shapes; ``build(cfg, weights, device)`` it with those
+weights; ``eval_logits(model, frame, cfg, device)`` a frame's point logits;
+``train_steps(model, batches, cfg, seed, schedule)`` the losses, first
+gradients and last parameters of one step a batch; ``counting()`` a
+context yielding the work records; ``precision(name)`` a context for
+'float32', 'bf16' or 'fp8' (the control). It may import
+``benchmark.reference.nn``, ``.data``, ``.structure`` and ``.train`` by
+absolute name.
 
 A run: set-up (the program's kernels built into its own build directory, the
 weights and frames made from ``--seed``, every shape warmed), the window of
@@ -48,6 +64,15 @@ def load_module(path: Path, name: str):
     return mod
 
 
+def load_reference(name, bench_dir: Path):
+    """The plain reference a configuration file names: ``reference/<name>.py``
+    of `bench_dir`, or the package ``benchmark.reference`` where it names
+    none."""
+    if name is None:
+        return importlib.import_module('benchmark.reference')
+    return load_module(bench_dir / 'reference' / f'{name}.py', f'reference.{name}')
+
+
 def forbidden_modules() -> list:
     """Loaded modules whose top-level name is JAX's, flax's or the JAX
     package's, compared whole."""
@@ -65,7 +90,9 @@ class Cell:
         self.workload = cells[name]
         self.name = name
         config = {c['name']: c for c in spec['configs']}[self.workload['config']]
-        self.config = json.loads((bench_dir.parent / config['file']).read_text())['config']
+        config_file = json.loads((bench_dir.parent / config['file']).read_text())
+        self.config = config_file['config']
+        self.reference = load_reference(config_file.get('reference'), bench_dir)
         self.traffic = json.loads(
             (bench_dir / 'traffic' / f'{self.workload["traffic"]}.json').read_text())
         self.loop_name = self.traffic['loop']
@@ -85,11 +112,12 @@ class Cell:
 
 class Run:
     """What a loop is given: the cell, the seed, the device, the trace
-    flag, and the program's config."""
+    flag, the program's config and the configuration's plain reference."""
 
     def __init__(self, cell: Cell, seed: int, device, trace: bool):
         self.cell, self.seed, self.device, self.trace = cell, seed, device, trace
         self.config, self.traffic, self.limits = cell.config, cell.traffic, cell.limits
+        self.reference = cell.reference
 
     def program_config(self):
         from openseg3d_tpu_torch.config import cfg_from_file

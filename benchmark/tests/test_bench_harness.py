@@ -103,6 +103,20 @@ def test_a_new_mix_is_data_only(tmp_path):
     assert list(result)[-1] == 'compared'
 
 
+
+def test_a_traced_serving_run_reads_its_untraced_frames(tmp_path):
+    """The per-layer rate and p95 of a traced serving run come from the
+    frames that ran outside the profiler, and reach the cell that lists
+    them."""
+    from benchmark import run
+    torch.set_num_threads(2)
+    spec, bench = tiny.make(tmp_path)
+    result = run.run_cell(spec, 'tinysp.eval', 5, 0.0, True, bench, require_chip=False)
+    assert result['correct'] and result['attempted'] == 2 + 10
+    metrics = {k: v['value'] for k, v in result['metrics'].items()}
+    assert metrics['frames_s.spnet_eval'] > 0 and metrics['ms_p95.spnet_eval'] > 0
+    assert 'host_prep_ms.spnet_eval' in metrics and 'host_prep_ms.eval' not in metrics
+
 NO_JAX = r'''
 import sys, json
 sys.path.insert(0, sys.argv[1])

@@ -10,6 +10,9 @@ from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
+LIMITS = {'train': {'grad_gap': 1e-3, 'change_gap': 1e-3,
+                    'grad_gap_worst': 1e-2, 'change_gap_worst': 1e-2},
+          'eval': {'label_regret': 1e-3}}
 
 
 def tiny_config(segmentor: str) -> dict:
@@ -26,34 +29,49 @@ def tiny_config(segmentor: str) -> dict:
     return json.loads(json.dumps(cfg))
 
 
-def make(tmp: Path) -> tuple[dict, Path]:
-    """(spec, bench dir) of a tiny benchmark under tmp: cells tiny.train,
-    tiny.eval (Segformer) and tinysp.train, tinysp.eval (SPNet)."""
+def default_configs() -> dict:
+    """The committed configurations' tiny stand-ins: Segformer as `tiny`,
+    SPNet as `tinysp`."""
+    return {'segformer_waymo': ('tiny', {'config': tiny_config('segformer')}),
+            'spnet_waymo': ('tinysp', {'config': tiny_config('spnet')})}
+
+
+def make(tmp: Path, configs: dict | None = None, spec: dict | None = None) -> tuple[dict, Path]:
+    """(spec, bench dir) of a tiny benchmark under tmp. `configs` maps a
+    configuration of `spec` (default: ``BENCHMARK.json``) to its tiny
+    stand-in, (name, configuration file content: ``config`` and an optional
+    ``reference``); default `default_configs()`, which gives the cells
+    tiny.train, tiny.eval (Segformer) and tinysp.train, tinysp.eval (SPNet).
+    Each stand-in gets a cell a loop; each metric lists the stand-ins of the
+    cells it lists, and drops the cells of configurations with none."""
     bench = tmp / 'benchmark'
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns('__pycache__', 'tests'))
-    spec = json.loads((ROOT / 'BENCHMARK.json').read_text())
+    spec = json.loads(json.dumps(spec)) if spec is not None \
+        else json.loads((ROOT / 'BENCHMARK.json').read_text())
+    configs = default_configs() if configs is None else configs
     frames = {'count': 6, 'min_points': 1000, 'max_points': 1400, 'num_classes': 22}
     (bench / 'traffic' / 'tiny_train.json').write_text(json.dumps({
         'loop': 'train', 'batch_size': 2, 'frames': frames,
         'schedule': {'epochs': 2, 'iters_per_epoch': 10, 'start_update': 10}}))
     (bench / 'traffic' / 'tiny_eval.json').write_text(json.dumps({'loop': 'eval',
                                                                   'frames': frames}))
+    tiny_cells = {}
+    for w in spec['workloads']:
+        if w['config'] in configs:
+            loop = json.loads((BENCH / 'traffic' / f'{w["traffic"]}.json').read_text())['loop']
+            tiny_cells[w['name']] = f'{configs[w["config"]][0]}.{loop}'
     spec['configs'], spec['workloads'] = [], []
-    for name, seg in (('tiny', 'segformer'), ('tinysp', 'spnet')):
-        (bench / 'configs' / f'{name}.json').write_text(json.dumps(
-            {'config': tiny_config(seg)}))
+    for name, content in configs.values():
+        (bench / 'configs' / f'{name}.json').write_text(json.dumps(content))
         spec['configs'].append({'name': name, 'source': 'test', 'file':
                                 f'benchmark/configs/{name}.json', 'reduced': [], 'why': 'test'})
-        for loop, limits in (('train', {'grad_gap': 1e-3, 'change_gap': 1e-3,
-                                        'grad_gap_worst': 1e-2, 'change_gap_worst': 1e-2}),
-                             ('eval', {'label_regret': 1e-3})):
+        for loop, limits in LIMITS.items():
             (bench / 'limits' / f'{name}.{loop}.json').write_text(json.dumps({'limits': limits}))
             spec['workloads'].append({'name': f'{name}.{loop}', 'config': name,
                                       'traffic': f'tiny_{loop}', 'chips': 1, 'why': 'test'})
-    tiny_cells = {'segformer.train': 'tiny.train', 'spnet.train': 'tinysp.train',
-                  'segformer.eval': 'tiny.eval', 'spnet.eval': 'tinysp.eval'}
     for m in spec['end_to_end'] + spec['per_layer']:
         if 'workloads' in m:
-            m['workloads'] = [tiny_cells[w] for w in m['workloads']]
+            m['workloads'] = list(dict.fromkeys(tiny_cells[w] for w in m['workloads']
+                                                if w in tiny_cells))
     (tmp / 'BENCHMARK.json').write_text(json.dumps(spec))
     return spec, bench
